@@ -10,13 +10,30 @@ Phases, in order; any failure exits non-zero:
   2. kernel A (LK level) against its plain PyTorch version at the main
      path's shapes (n = 256 and 512, all 4 levels) on pyramids of the
      rendered scene, with kernel, plain and bound times;
-  3. kernel B (multi-start LM pose solve) the same, at S = 3, F = 256;
+  3. kernel B (multi-start LM pose solve) the same, at S = 3, F = 256, and
+     over a stream axis at (B, S) = (4, 3);
   4. the slice: the 120-frame 188x620 circuit through `FusedVisualOdometry`
      on "cuda" with the bench settings, the bench's gates, keyframe ATE < 2%
      of the path, and the launch counters against the frame and keyframe
      counts;
   5. the first frames again on "cpu" (the kernels' plain versions), held to
-     the card's run.
+     the card's run;
+  6. kernel C (windowed LK loop) and the window gather against their plain
+     versions at the serving shapes (N = 1024 and 2048 on levels 0 and 1),
+     with kernel, plain, bound and library times;
+  7. multi-stream serving: 4 streams of 90 frames of the circuit through
+     `BatchedFusedVisualOdometry(kf_stagger=4)` on "cuda", with launch
+     counters and the aggregate fps; twice: with the bench's settings,
+     whose BA landmark compaction (1024) overflows here (its per-stream ATE
+     and the overflow are printed, the ATE not gated), then with the
+     compaction sized to the serving window (`serving_config`, 2048), the
+     gated cell: the reference's per-stream gates;
+  8. kernel C on the path: from the gated serving run's state at steps 20,
+     40 and 60, 20 serving frames each with the per-level LK
+     (`pallas_mode="pallas"`); every launch of kernel C and of the gather
+     held to its plain version on its inputs, the poses to ground truth
+     and to the same frames on the lanes LK;
+  9. the first serving frames again on "cpu", held to the card's run.
 
 The last lines are the kernel table (JSON), the nvidia-smi line, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -25,6 +42,7 @@ The last lines are the kernel table (JSON), the nvidia-smi line, and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -48,6 +66,18 @@ POSE_STEP_TOL = 1e-4     # max |T_kernel - T_plain| after one LM step
 # held to 1% of the path driven in the compared frames, half the ATE gate
 CPU_POSE_TOL_PER_M = 1e-2
 CPU_FRAMES = 16
+# multi-stream serving: B streams of T frames, stream b starting at frame
+# STRIDE * b of the circuit, the keyframe branch on one stream per frame
+SERVE_B, SERVE_T, SERVE_STRIDE, SERVE_STAGGER = 4, 90, 10, 4
+SERVE_ATE_PER_M = 0.05     # the reference's staggered-mode gate
+PALLAS_FROMS, PALLAS_STEPS = (20, 40, 60), 20
+# per-level LK (kernel C) against the lanes LK (kernel A) on the same
+# frames: two LK algorithms with other search windows, so inlier sets part
+# and each run drifts its own way. Camera centres 0.0061-0.2219 m apart
+# over the 12 (start, stream) runs of phase 8 (H100); held at about twice
+# the largest. Each kernel C launch is held to its plain version instead.
+PALLAS_DRIFT_TOL = 0.5   # m
+CPU_SERVE_STEPS = 8
 
 
 def check(ok: bool, msg: str) -> None:
@@ -153,7 +183,7 @@ def check_lk(rendered, dev):
                 library_ms=None)
 
 
-def pose_problem(dev):
+def pose_problem(dev, seed: int = 0):
     """Kernel B's main-path shape: S = 3 starts, F = 256 points."""
     import numpy as np
     import torch
@@ -161,10 +191,10 @@ def pose_problem(dev):
     from stereovision_slam_torch.scenes import make_stereo_rig
 
     F = 256
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     left, right = (c.to(dev) for c in make_stereo_rig())
     T_gt = se3.se3_exp(torch.tensor([0.3, -0.1, 0.5, 0.02, -0.03, 0.01],
-                                    device=dev))
+                                    device=dev) + 0.05 * seed)
     pts = torch.tensor(np.stack([rng.uniform(-8, 8, F), rng.uniform(-3, 3, F),
                                  rng.uniform(6, 40, F)], 1), dtype=torch.float32,
                        device=dev)
@@ -184,16 +214,54 @@ def pose_problem(dev):
     return left, right, T0, pts, uv_l, uv_r, vl, vr
 
 
+def pose_args(dev, seed: int = 0):
+    """(camp, pts, uv, valid, T0): kernel B's inputs for one stream."""
+    import torch
+    from stereovision_slam_torch.ops import pose_kernel as pk
+
+    left, right, T0, pts, uv_l, uv_r, vl, vr = pose_problem(dev, seed)
+    camp = torch.stack([pk.cam_params(left), pk.cam_params(right)]).contiguous()
+    uv = torch.cat([uv_l, uv_r], 1).contiguous()
+    valid = torch.stack([vl, vr], 1).float().contiguous()
+    return camp, pts.contiguous(), uv, valid, T0.contiguous()
+
+
+def check_pose_streams(dev) -> None:
+    """Kernel B over (B, S) = (4, 3): every (stream, start) against the
+    plain version after one LM step (the starts still apart) and at the
+    end; prints the kernel's time per launch."""
+    import torch
+    from stereovision_slam_torch.ops import pose_kernel as pk
+
+    per = [pose_args(dev, seed) for seed in range(SERVE_B)]
+    args = (per[0][0], *(torch.stack(x).contiguous()
+                         for x in list(zip(*per))[1:]))
+    for kw, tol in ((dict(rounds=1, iters=1), POSE_STEP_TOL),
+                    (dict(rounds=3, iters=6), POSE_T_TOL)):
+        Tk, ik, ck, _ = pk.pose_lm(*args, chi2_th=5.991, **kw)
+        Tp, ip, cp, _ = pk.pose_lm_plain(*args, chi2_th=5.991, **kw)
+        torch.cuda.synchronize()
+        t_err = float((Tk - Tp).abs().max())
+        agree = float((ik == ip).float().mean(dim=(2, 3)).min())
+        c_err = float(((ck - cp).abs() / cp.abs().clamp(min=1.0)).max())
+        print(f"kernel B (B, S) = {tuple(Tk.shape[:2])}, {kw}: max |T| err "
+              f"{t_err:.3e} over every (b, s), inlier agree >= {agree:.4f}, "
+              f"cost err {c_err:.3e}")
+        check(t_err <= tol and agree >= POSE_INLIER_AGREE
+              and c_err <= POSE_COST_TOL,
+              f"kernel B over streams disagrees with its plain version {kw}")
+    ms = cuda_ms(lambda: pk.pose_lm(*args, chi2_th=5.991, rounds=3,
+                                    iters=6), 50)
+    print(f"kernel B (B, S) = ({SERVE_B}, 3), F = 256: {ms:.4f} ms per launch")
+
+
 def check_pose(dev):
     import torch
     from stereovision_slam_torch.ops import pose_kernel as pk
 
-    left, right, T0, pts, uv_l, uv_r, vl, vr = pose_problem(dev)
-    camp = torch.stack([pk.cam_params(left), pk.cam_params(right)]).contiguous()
-    uv = torch.cat([uv_l, uv_r], 1).contiguous()
-    valid = torch.stack([vl, vr], 1).float().contiguous()
     kw = dict(chi2_th=5.991, rounds=3, iters=6)
-    args = (camp, pts.contiguous(), uv, valid, T0.contiguous())
+    args = pose_args(dev)
+    T0, pts = args[4], args[1]
     Tk, ik, ck, nk = pk.pose_lm(*args, **kw)
     Tp, ip, cp, npl = pk.pose_lm_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -256,8 +324,8 @@ def bench_config():
     return cfg
 
 
-def run_slice(lefts, rights, rig, device):
-    import torch
+def slice_vo(lefts, rights, rig, device):
+    """An initialized `FusedVisualOdometry` over the frames."""
     from stereovision_slam_torch.io.dataset import ArraySequenceDataset
     from stereovision_slam_torch.slam.fused import FusedVisualOdometry
 
@@ -265,6 +333,13 @@ def run_slice(lefts, rights, rig, device):
         lefts, rights, list(rig)), max_total_keyframes=512,
         max_total_landmarks=1 << 16, device=device)
     vo.initialize()
+    return vo
+
+
+def run_slice(lefts, rights, rig, device):
+    import torch
+
+    vo = slice_vo(lefts, rights, rig, device)
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -273,15 +348,19 @@ def run_slice(lefts, rights, rig, device):
     return vo, dt
 
 
-def profile_slice(lefts, rights, rig, n: int) -> None:
-    """Device busy share and the top kernels over an n-frame run, under
-    torch.profiler, followed by the profiler's table of operators."""
+def profile_run(label: str, vo, frames: int) -> None:
+    """Device busy share and the top kernels while `vo.run()` drives
+    `frames` frames, under torch.profiler, then the profiler's tables."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, dt = run_slice(lefts[:n], rights[:n], rig, "cuda")
+        t0 = time.perf_counter()
+        vo.run()
+        dt = time.perf_counter() - t0
     ka = prof.key_averages()
 
     def dev_us(e):
@@ -292,11 +371,12 @@ def profile_slice(lefts, rights, rig, n: int) -> None:
                and not e.is_user_annotation]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    print(f"profile: {n} frames in {dt * 1e3:.1f} ms (under the profiler), "
-          f"device busy {busy_ms:.1f} ms = {100 * busy_ms / (dt * 1e3):.1f}% "
-          f"of that, {launches} device kernels = {launches / n:.0f} per frame")
+    print(f"profile {label}: {frames} frames in {dt * 1e3:.1f} ms (under the "
+          f"profiler), device busy {busy_ms:.1f} ms = "
+          f"{100 * busy_ms / (dt * 1e3):.1f}% of that, {launches} device "
+          f"kernels = {launches / frames:.0f} per frame")
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    print("profile top kernels: " + "; ".join(
+    print(f"profile {label} top kernels: " + "; ".join(
         f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top))
     sort = ("self_device_time_total" if hasattr(ka[0], "self_device_time_total")
             else "self_cuda_time_total")
@@ -304,10 +384,396 @@ def profile_slice(lefts, rights, rig, n: int) -> None:
     print(ka.table(sort_by="self_cpu_time_total", row_limit=15))
 
 
+@contextlib.contextmanager
+def held_to_plain(records: list):
+    """While active, every launch of kernel C and of the window gather (as
+    `lk._track_level` makes them) is compared with its plain version on the
+    same inputs; `records` gets one dict per launch, the last call's inputs
+    under "args". The path's own result is returned unchanged."""
+    import torch
+    from stereovision_slam_torch.ops import gather, lk_iterate
+
+    kernel_c, kernel_g = lk_iterate.lk_iterate, gather.gather_windows
+
+    def c(*a, **kw):
+        k = kernel_c(*a, **kw)
+        p = lk_iterate.lk_iterate_plain(*a, **kw)
+        flags_eq = (k[:, 2:4] == p[:, 2:4]).all(dim=1)
+        err = (k[:, :2] - p[:, :2]).abs().amax(dim=1)
+        err = err[flags_eq & torch.isfinite(err)]
+        records.append(dict(name="lk_iterate", args=(a, kw),
+                            agree=float(flags_eq.float().mean()),
+                            err=float(err.max()) if err.numel() else 0.0))
+        return k
+
+    def g(*a, **kw):
+        k = kernel_g(*a, **kw)
+        p = gather.gather_windows_plain(*a, **kw)
+        records.append(dict(name="gather_windows", args=(a, kw),
+                            agree=float(torch.equal(k, p)),
+                            err=float((k - p).abs().max())))
+        return k
+
+    lk_iterate.lk_iterate, gather.gather_windows = c, g
+    try:
+        yield
+    finally:
+        lk_iterate.lk_iterate, gather.gather_windows = kernel_c, kernel_g
+
+
+def check_held(records: list, label: str) -> tuple[float, float]:
+    """Gates the comparisons of `held_to_plain`: kernel C's flags equal on
+    LK_FLAG_AGREE of the points and positions within LK_POS_TOL, the gather
+    bit-equal. Returns the largest kernel C and gather errors."""
+    cs = [r for r in records if r["name"] == "lk_iterate"]
+    gs = [r for r in records if r["name"] == "gather_windows"]
+    c_agree = min(r["agree"] for r in cs)
+    c_err = max(r["err"] for r in cs)
+    g_err = max(r["err"] for r in gs)
+    g_equal = all(r["agree"] == 1.0 for r in gs)
+    print(f"{label}: {len(cs)} kernel C launches against the plain version, "
+          f"flags agree >= {c_agree:.4f}, max pos err {c_err:.3e} px; "
+          f"{len(gs)} gather launches, all bit-equal {g_equal} (max err "
+          f"{g_err:.1e})")
+    check(c_agree >= LK_FLAG_AGREE and c_err <= LK_POS_TOL,
+          f"{label}: kernel C disagrees with its plain version: {c_agree}, "
+          f"{c_err}")
+    check(g_equal, f"{label}: the window gather is not bit-equal")
+    return c_err, g_err
+
+
+def serving_streams(lefts, rights, gt):
+    """SERVE_B streams of SERVE_T circuit frames, stream b from frame
+    SERVE_STRIDE * b, with ground truth re-based to its first frame."""
+    import numpy as np
+
+    def inv(T):
+        R = T[:, :3].T
+        return np.concatenate([R, -R @ T[:, 3:]], 1)
+
+    def compose(A, B):
+        return np.concatenate([A[:, :3] @ B[:, :3],
+                               A[:, :3] @ B[:, 3:] + A[:, 3:]], 1)
+
+    out = []
+    for b in range(SERVE_B):
+        s = slice(SERVE_STRIDE * b, SERVE_STRIDE * b + SERVE_T)
+        base = inv(gt[s.start])
+        out.append((lefts[s], rights[s],
+                    np.stack([compose(T, base) for T in gt[s]])))
+    return out
+
+
+def check_lk_window(streams, dev):
+    """Kernel C and the window gather against their plain versions on
+    every launch of the serving path's two per-level LK calls (G = B and
+    G = 2B groups of 256 points, windowed levels 0 and 1), on the first
+    two frames of the serving streams."""
+    import torch
+    from stereovision_slam_torch.ops import gather, gftt, image as imops, lk
+    from stereovision_slam_torch.ops import lk_iterate
+
+    def levels(side, i):
+        return [torch.stack(lv) for lv in zip(*(imops.build_pyramid(
+            torch.as_tensor(s[side][i], device=dev), 4) for s in streams))]
+
+    prev, cur, right = levels(0, 0), levels(0, 1), levels(1, 1)
+    det = [gftt.detect(prev[0][b], max_corners=256, min_distance=20)
+           for b in range(len(streams))]
+    pts = torch.stack([d[0] for d in det])
+    valid = torch.stack([d[1] for d in det])
+    records = []
+    with held_to_plain(records):
+        uv_a, st_a = lk.track_batched(prev, cur, pts, pts, valid,
+                                      max_iters=12, pallas_mode="pallas")
+        lk.track_batched(
+            [torch.cat([p, c]) for p, c in zip(prev, cur)],
+            [torch.cat([c, r]) for c, r in zip(cur, right)],
+            torch.cat([pts, uv_a]),
+            torch.cat([uv_a, uv_a - torch.tensor([12.0, 0.0], device=dev)]),
+            torch.cat([valid, valid & st_a]), max_iters=12,
+            pallas_mode="pallas")
+    check(len(records) == 8, f"{len(records)} kernel C and gather launches, "
+          "not 4 each")
+    for r in records:
+        if r["name"] == "lk_iterate":
+            a, kw = r["args"]
+            print(f"kernel C N={a[0].shape[0]} H x W={kw['H']}x{kw['W']}: "
+                  f"flags agree {r['agree']:.4f}, max pos err "
+                  f"{r['err']:.3e} px")
+    c_err, g_err = check_held(records, "phase 6")
+
+    # times at the largest launch: level 0 of the G = 2B call
+    a, kw = next(r["args"] for r in reversed(records)
+                 if r["name"] == "lk_iterate")
+    ga, gkw = next(r["args"] for r in reversed(records)
+                   if r["name"] == "gather_windows")
+    win, tmpl = a[0], a[1]
+    N, P, R = win.shape[0], win.shape[1], tmpl.shape[1]
+    iters = float(lk_iterate.lk_iterate_plain(*a, **kw)[:, 4].sum())
+    # per pixel and iteration: 4-term bilinear (7), diff (1), two
+    # multiply-adds (4)
+    flops = iters * R * R * 12.0
+    nbytes = 4 * (sum(t.numel() for t in a) + N * lk_iterate.OUT_COLS)
+    b_c, by_c = bound_ms(nbytes, flops)
+    c_row = dict(name="lk_iterate", route="cuda",
+                 source="stereovision_slam_torch/csrc/lk_iterate.cu",
+                 replaces="stereovision_slam_tpu/ops/lk_pallas.py:46",
+                 max_abs_err=c_err,
+                 ms=cuda_ms(lambda: lk_iterate.lk_iterate(*a, **kw), 50),
+                 plain_ms=cuda_ms(
+                     lambda: lk_iterate.lk_iterate_plain(*a, **kw), 3),
+                 bound_ms=b_c, bound_by=by_c, library_ms=None)
+    imgs, group, cy, cx = ga[:4]
+    G, H, W = imgs.shape
+    r = torch.arange(P, device=dev)
+    gi = group.long()[:, None, None]
+    rows = (cy.long()[:, None] + r)[:, :, None]
+    cols = (cx.long()[:, None] + r)[:, None, :]
+    nbytes = 4 * (imgs.numel() + 3 * N + N * P * P)
+    b_g, by_g = bound_ms(nbytes, 0.0)
+    g_row = dict(name="gather_windows", route="cuda",
+                 source="stereovision_slam_torch/csrc/gather_windows.cu",
+                 replaces="benchmarks/probe_gather.py:48",
+                 max_abs_err=g_err,
+                 ms=cuda_ms(lambda: gather.gather_windows(*ga, **gkw), 50),
+                 plain_ms=cuda_ms(
+                     lambda: gather.gather_windows_plain(*ga, **gkw), 50),
+                 bound_ms=b_g, bound_by=by_g,
+                 library_ms=cuda_ms(lambda: imgs[gi, rows, cols], 50))
+    print(f"kernel C N={N} (G={G}) level {H}x{W}: {c_row['ms']:.4f} ms, "
+          f"plain {c_row['plain_ms']:.3f} ms, bound {b_c:.6f} ms ({by_c}); "
+          f"gather {g_row['ms']:.4f} ms, plain {g_row['plain_ms']:.4f} ms, "
+          f"indexing {g_row['library_ms']:.4f} ms, bound {b_g:.6f} ms")
+    return c_row, g_row
+
+
+def serving_config():
+    """The gated serving cell: the bench's settings, with BA's landmark
+    compaction sized to the serving window. The bench's 1024 overflows
+    there: with a keyframe every fourth frame each of the ten window
+    keyframes brings up to 250 new landmarks, BA passes leave active
+    landmarks out (silently, in both packages), and a stream's pose jumps
+    (phase 7 prints the bench run's overflow and ATE). With room for 2048
+    no pass overflows."""
+    cfg = bench_config()
+    cfg.ba_max_active_landmarks = 2048
+    return cfg
+
+
+def make_serving(streams, rig, device, cfg=None):
+    from stereovision_slam_torch.io.dataset import ArraySequenceDataset
+    from stereovision_slam_torch.slam.batched import BatchedFusedVisualOdometry
+
+    return BatchedFusedVisualOdometry(
+        cfg or serving_config(), [ArraySequenceDataset(l, r, list(rig))
+                                  for l, r, _ in streams],
+        max_total_keyframes=512, max_total_landmarks=1 << 16,
+        kf_stagger=SERVE_STAGGER, device=device)
+
+
+def stream_ate(traj, gt) -> float:
+    import numpy as np
+
+    def center(p):
+        return -p[:, :3].T @ p[:, 3]
+    errs = [np.linalg.norm(center(p) - center(gt[f])) for f, p in traj.items()]
+    return float(np.sqrt(np.mean(np.square(errs))))
+
+
+@contextlib.contextmanager
+def ba_overflow(passes: list):
+    """While active, `passes` gets each serving BA pass's count of active
+    landmarks left out by the compaction (a device tensor, read later)."""
+    from stereovision_slam_torch.slam import batched
+
+    optimize = batched.optimize_window
+
+    def counted(*a, **kw):
+        out = optimize(*a, **kw)
+        passes.append(out[1][3])
+        return out
+    batched.optimize_window = counted
+    try:
+        yield
+    finally:
+        batched.optimize_window = optimize
+
+
+def run_serving(streams, rig, counters, dev, cfg, label: str,
+                gate_ate: bool):
+    """Phase 7: one serving run on the card, with the launch counters set
+    to 0 before it; gates keyframes, inliers and launches, and the ATE
+    where `gate_ate`. Returns (vo, the states after each of PALLAS_FROMS
+    steps, launches)."""
+    import numpy as np
+    import torch
+
+    for mod in counters.values():
+        mod.launch_count = 0
+    vo = make_serving(streams, rig, dev, cfg)
+    vo.initialize()
+    passes, snaps = [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ba_overflow(passes):
+        while True:
+            if vo._step_idx in PALLAS_FROMS:
+                snaps[vo._step_idx] = (vo.fs, vo.ms, vo.arc,
+                                       list(vo.kf_count))
+            if not vo.step():
+                break
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: m.launch_count for k, m in counters.items()}
+    over = [int(p) for p in passes if int(p) > 0]
+    steps = vo._step_idx
+    frames = SERVE_B * steps
+    outputs = vo.outputs
+    inserted = sum(int(o.kf_inserted) for out in outputs for _, o in out)
+    print(f"serving ({label}, ba_max_active_landmarks "
+          f"{cfg.ba_max_active_landmarks}): {SERVE_B} streams x {steps} "
+          f"tracked frames in {dt:.3f} s = {frames / dt:.2f} frames/s "
+          f"aggregate (host clock, ends in synchronize), {inserted} keyframe "
+          f"steps, launches {launches}; {len(passes)} BA passes, {len(over)} "
+          f"left active landmarks out, up to {max(over, default=0)}")
+    path = 0.35 * SERVE_T
+    for b, (traj, out) in enumerate(zip(vo.trajectories(), outputs)):
+        n_in = np.array([int(o.n_inliers) for _, o in out])
+        ate = stream_ate(traj, streams[b][2])
+        met = ate < SERVE_ATE_PER_M * path
+        print(f"  stream {b}: {len(traj)} keyframes, keyframe ATE {ate:.4f} m "
+              f"over {path:.1f} m ({100 * ate / path:.3f}%, the 5% gate "
+              f"{'met' if met else 'MISSED'}"
+              f"{'' if gate_ate else ', not gated'}), n_inliers "
+              f"{n_in.min()}-{n_in.max()}")
+        check(len(traj) >= 2, f"stream {b}: only {len(traj)} keyframes")
+        check(met or not gate_ate, f"stream {b}: ATE {ate:.3f} m")
+        check(len(out) == steps and bool(np.all(n_in > 10)),
+              f"stream {b}: tracking collapsed: {n_in.tolist()}")
+    want_a = 8 * steps + 4 * (SERVE_B + inserted)
+    check(launches["lk_level"] == want_a,
+          f"kernel A launched {launches['lk_level']} times, not {want_a}")
+    check(launches["pose_lm"] == steps,
+          f"kernel B launched {launches['pose_lm']} times, not {steps}")
+    check(launches["lk_iterate"] == 0 and launches["gather_windows"] == 0,
+          "the lanes path launched kernel C or the gather")
+    return vo, snaps, launches
+
+
+def serve_from(vo, state, start: int, streams, dev, mode: str):
+    """PALLAS_STEPS serving steps from `state`, the state after `start`
+    steps, with pallas_mode=mode. Returns (n_inliers (T, B), poses (T, B,
+    3, 4), keyframe steps (T, B))."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch.slam.batched import batched_staggered_step
+
+    fs, ms, arc, kfc = state
+    n_in, pose, kf = [], [], []
+    for i in range(start, start + PALLAS_STEPS):
+        f = i + 1                      # frame 0 went to the initialization
+        left = torch.as_tensor(np.stack([s[0][f] for s in streams]),
+                               device=dev)
+        right = torch.as_tensor(np.stack([s[1][f] for s in streams]),
+                                device=dev)
+        fs, ms, arc, kfc, out = batched_staggered_step(
+            fs, ms, arc, kfc, left, right, [f] * SERVE_B, i % SERVE_STAGGER,
+            vo.cam_left, vo.cam_right, pallas_mode=mode, **vo._statics())
+        n_in.append(out.n_inliers.cpu().numpy())
+        pose.append(out.pose.cpu().numpy())
+        kf.append(out.kf_inserted)
+    return np.stack(n_in), np.stack(pose), np.stack(kf)
+
+
+def pallas_on_path(vo, snaps, streams, counters, dev):
+    """Phase 8: PALLAS_STEPS serving frames from the state after each of
+    PALLAS_FROMS steps with the per-level LK (kernel C and the gather on
+    levels 0 and 1 of both LK calls), every launch held to its plain
+    version; then the same frames with the lanes LK, for comparison."""
+    import numpy as np
+    import torch
+
+    for m in counters.values():
+        m.launch_count = 0
+    records = []
+    with held_to_plain(records):
+        per_level = {s: serve_from(vo, snaps[s], s, streams, dev, "pallas")
+                     for s in PALLAS_FROMS}
+    torch.cuda.synchronize()
+    launches = {k: m.launch_count for k, m in counters.items()}
+    lanes = {s: serve_from(vo, snaps[s], s, streams, dev, "lanes")
+             for s in PALLAS_FROMS}
+
+    def centres(p):
+        return -np.einsum("...ji,...j->...i", p[..., :3], p[..., 3])
+
+    print(f"kernel C on the path: {PALLAS_STEPS} frames x {SERVE_B} streams "
+          f"from each of steps {PALLAS_FROMS}, launches {launches}")
+    c_err, g_err = check_held(records, "phase 8")
+    for s in PALLAS_FROMS:
+        (n_p, pose_p, kf_p), (_, pose_l, kf_l) = per_level[s], lanes[s]
+        frames = np.arange(s + 1, s + PALLAS_STEPS + 1)
+        gt = centres(np.stack([st[2][frames] for st in streams], 1))
+        err_p = np.linalg.norm(centres(pose_p) - gt, axis=-1)   # (T, B)
+        err_l = np.linalg.norm(centres(pose_l) - gt, axis=-1)
+        diff = np.linalg.norm(centres(pose_p) - centres(pose_l), axis=-1)
+        gt_tol = SERVE_ATE_PER_M * 0.35 * frames[-1]
+        print(f"  from step {s}: n_inliers {n_p.min()}-{n_p.max()}; error to "
+              f"ground truth per stream, per-level LK max "
+              + " ".join(f"{e:.3f}" for e in err_p.max(0))
+              + f" m (gate {gt_tol:.3f}), lanes LK max "
+              + " ".join(f"{e:.3f}" for e in err_l.max(0))
+              + " m; per-level vs lanes centres apart by up to "
+              + " ".join(f"{d:.4f}" for d in diff.max(0))
+              + f" m (tolerance {PALLAS_DRIFT_TOL}); keyframes "
+              f"{int(kf_p.sum())}/{int(kf_l.sum())}")
+        check(bool(np.all(n_p > 10)),
+              f"tracking collapsed on kernel C from step {s}")
+        check(float(err_p.max()) < gt_tol,
+              f"the kernel C run from step {s} is {err_p.max()} m off "
+              "ground truth")
+        check(float(diff.max()) < PALLAS_DRIFT_TOL,
+              f"the kernel C run from step {s} parts from the lanes run by "
+              f"{diff.max()} m")
+    runs = len(PALLAS_FROMS)
+    want = 4 * PALLAS_STEPS * runs
+    check(launches["lk_iterate"] == want
+          and launches["gather_windows"] == want,
+          f"kernel C / gather launched {launches}, not {want} each")
+    check(launches["pose_lm"] == PALLAS_STEPS * runs, "kernel B launch count")
+    return launches, c_err, g_err
+
+
+def cpu_serving(streams, rig, vo_card):
+    """Phase 9: the first CPU_SERVE_STEPS serving frames on the CPU."""
+    import numpy as np
+
+    cut = [(l[:CPU_SERVE_STEPS + 1], r[:CPU_SERVE_STEPS + 1], g)
+           for l, r, g in streams]
+    t0 = time.perf_counter()
+    vo = make_serving(cut, rig, "cpu")
+    vo.initialize()
+    vo.run()
+    dt = time.perf_counter() - t0
+    card = vo_card.outputs
+    diff = 0.0
+    for b, out in enumerate(vo.outputs):
+        pc = np.stack([o.pose for _, o in out])
+        pg = np.stack([o.pose for _, o in card[b][:len(out)]])
+        diff = max(diff, float(np.abs(pc - pg).max()))
+    tol = CPU_POSE_TOL_PER_M * 0.35 * CPU_SERVE_STEPS
+    print(f"cpu rerun of {CPU_SERVE_STEPS} serving frames x {SERVE_B} "
+          f"streams ({dt:.1f} s): max pose diff {diff:.3e} (tolerance "
+          f"{tol:.3e})")
+    check(diff < tol, f"cuda and cpu serving runs differ by {diff}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", type=int, default=0,
-                    help="also profile this many frames of the slice")
+                    help="also profile this many frames of the slice and "
+                         "of the serving streams")
     args = ap.parse_args()
     try:
         import numpy as np
@@ -321,7 +787,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from stereovision_slam_torch import scenes
-        from stereovision_slam_torch.ops import _cuda, lk_lanes, pose_kernel
+        from stereovision_slam_torch.ops import (
+            _cuda, gather, lk_iterate, lk_lanes, pose_kernel)
     except ImportError as e:
         print(f"chip_smoke: the port is missing: {e}", file=sys.stderr)
         return 1
@@ -350,14 +817,16 @@ def main() -> int:
 
     # 2-3. kernels against their plain versions
     kernels = [check_lk((lefts, rights), dev), check_pose(dev)]
+    check_pose_streams(dev)
 
     # 4. the slice on the card, counters read around this run only
+    counters = {"lk_level": lk_lanes, "pose_lm": pose_kernel,
+                "lk_iterate": lk_iterate, "gather_windows": gather}
     T = len(lefts)
-    lk_lanes.launch_count = 0
-    pose_kernel.launch_count = 0
+    for mod in counters.values():
+        mod.launch_count = 0
     vo, dt = run_slice(lefts, rights, rig, dev)
-    launches = {"lk_level": lk_lanes.launch_count,
-                "pose_lm": pose_kernel.launch_count}
+    launches = {k: m.launch_count for k, m in counters.items()}
     keyframes, landmarks, frames = vo.drain()
     n_in = np.array([int(f.n_inliers) for _, f in frames])
     kf_counts = [int(f.kf_count) for _, f in frames]
@@ -387,11 +856,13 @@ def main() -> int:
           f"kernel A launched {launches['lk_level']} times, not {want_lk}")
     check(launches["pose_lm"] == tracked,
           f"kernel B launched {launches['pose_lm']} times, not {tracked}")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    check(launches["lk_iterate"] == 0 and launches["gather_windows"] == 0,
+          "the slice launched kernel C or the gather")
+    by_path = {"slice": launches}
 
     if args.profile:
-        profile_slice(lefts, rights, rig, args.profile)
+        n = args.profile
+        profile_run("slice", slice_vo(lefts[:n], rights[:n], rig, dev), n - 1)
 
     # 5. the first frames again on the CPU (plain versions)
     n_cpu = CPU_FRAMES
@@ -408,10 +879,46 @@ def main() -> int:
           + " ".join(f"{d:.1e}" for d in per_frame))
     check(diff < tol, f"cuda and cpu runs differ by {diff}")
 
+    # 6. kernel C and the gather at the serving shapes
+    streams = serving_streams(lefts, rights, gt)
+    kernels += list(check_lk_window(streams, dev))
+
+    # 7-8. multi-stream serving (the bench's settings, then the gated
+    # cell), then kernel C on its path
+    _, _, by_path["serving_bench"] = run_serving(
+        streams, rig, counters, dev, bench_config(), "bench settings",
+        gate_ate=False)
+    vo_s, snaps, by_path["serving"] = run_serving(
+        streams, rig, counters, dev, serving_config(), "gated cell",
+        gate_ate=True)
+    by_path["serving_pallas"], c_err, g_err = pallas_on_path(
+        vo_s, snaps, streams, counters, dev)
+    for k, e in zip(kernels[2:], (c_err, g_err)):
+        k["max_abs_err"] = max(k["max_abs_err"], e)
+
+    if args.profile:
+        n = min(args.profile, SERVE_T - 1)
+        vo_p = make_serving([(l[:n + 1], r[:n + 1], g) for l, r, g in streams],
+                            rig, dev)
+        vo_p.initialize()
+        profile_run("serving", vo_p, SERVE_B * n)
+
+    # 9. the first serving frames again on the CPU
+    cpu_serving(streams, rig, vo_s)
+
+    # launches: kernels A and B on the slice (the main path), kernel C and
+    # the gather on the serving run with the per-level LK; every path's
+    # counts beside them
+    for k in kernels:
+        path = "slice" if k["name"] in ("lk_level", "pose_lm") \
+            else "serving_pallas"
+        k["launches"] = by_path[path][k["name"]]
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     print(json.dumps({"kernels": [
         {k: kern[k] for k in ("name", "route", "source", "replaces",
                               "launches", "max_abs_err", "ms", "plain_ms",
-                              "bound_ms", "bound_by", "library_ms")}
+                              "bound_ms", "bound_by", "library_ms",
+                              "launches_by_path")}
         for kern in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

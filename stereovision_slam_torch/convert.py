@@ -4,8 +4,10 @@ Turns the JAX package's values, given as array-likes (numpy arrays, or any
 object `np.asarray` accepts), into the port's tensors: `Camera`, `MapState`,
 `FrontendState`, `ArchiveState` and `SlamConfig` fields. Both packages keep
 the same fixed capacities and slot order, so a converted state is the same
-state, and tests can start both packages from one mid-sequence state.
-`to_numpy` goes the other way for comparisons.
+state, and tests can start both packages from one mid-sequence state. A
+stacked multi-stream state (every field with a leading (B, ...) axis,
+pyramid levels (B, H, W)) converts the same way, into the state of
+`slam/batched.py`. `to_numpy` goes the other way for comparisons.
 """
 
 from __future__ import annotations

@@ -9,13 +9,16 @@
 // unrolled Cholesky, T <- exp(dx) T, acceptance when the robust cost
 // drops (lam * 0.3, else lam * 5), and inlier re-levelling between rounds.
 // Outputs per start: T, the inlier mask, the final robust cost and the inlier
-// count; the wrapper takes the argmin over starts.
+// count; the wrapper takes the argmin over starts. A launch solves B streams
+// at once (the reference's `jax.vmap` of the solve in multi-stream serving):
+// block b * S + s runs start s of stream b on that stream's points, with the
+// cameras shared.
 //
 // What bounds it on an H100: latency. The inputs are ~10 KB and the work is
 // ~50 MFLOP for S=3, F=256, rounds*iters=18; each LM step is a chain of two
 // block reductions and one serial 6x6 solve on one thread.
 //
-// Design: one block per start, 256 threads, each thread owning the left and
+// Design: one block per (stream, start), 256 threads, each thread owning the left and
 // right observation of up to kPerThread points (its point data and inlier
 // flags live in registers). Each step reduces the 21 unique H entries, the
 // 6 b entries and the incumbent robust cost with warp shuffles and then
@@ -163,13 +166,17 @@ pose_lm_kernel(const float* __restrict__ camp, const float* __restrict__ pts,
                const float* __restrict__ uv, const float* __restrict__ valid,
                const float* __restrict__ T0, float* __restrict__ T_out,
                float* __restrict__ inl_out, float* __restrict__ cost_out,
-               float* __restrict__ nin_out, int F, int rounds, int iters,
-               float chi2_th) {
+               float* __restrict__ nin_out, int F, int S, int rounds,
+               int iters, float chi2_th) {
   __shared__ float warp_part[kWarps][kRed];
   __shared__ float total[kRed];
   __shared__ float T_sh[12], Tn_sh[12];
   __shared__ Cam cams[2];
-  const int s = blockIdx.x, tid = threadIdx.x;
+  const int bs = blockIdx.x, tid = threadIdx.x;   // b * S + s
+  const int b = bs / S;
+  pts += (size_t)b * F * 3;
+  uv += (size_t)b * F * 4;
+  valid += (size_t)b * F * 2;
 
   if (tid < 2) {
     const float* cp = camp + 16 * tid;
@@ -179,7 +186,7 @@ pose_lm_kernel(const float* __restrict__ camp, const float* __restrict__ pts,
     for (int k = 0; k < 3; ++k) c.t[k] = cp[13 + k];
     cams[tid] = c;
   }
-  if (tid < 12) T_sh[tid] = T0[12 * s + tid];
+  if (tid < 12) T_sh[tid] = T0[12 * bs + tid];
 
   float P[kPerThread][3], O[kPerThread][4];
   bool val[kPerThread][2], inl[kPerThread][2];
@@ -286,14 +293,14 @@ pose_lm_kernel(const float* __restrict__ camp, const float* __restrict__ pts,
       const float c = p.Z > 1e-6f ? p.ru * p.ru + p.rv * p.rv : 1e12f;
       fin[0] += val[k][h] ? fminf(c, chi2_th) : chi2_th;
       fin[1] += inl[k][h] ? 1.0f : 0.0f;
-      inl_out[((size_t)s * 2 + h) * F + f] = inl[k][h] ? 1.0f : 0.0f;
+      inl_out[((size_t)bs * 2 + h) * F + f] = inl[k][h] ? 1.0f : 0.0f;
     }
   }
   block_sum<2>(fin, warp_part, total);
-  if (tid < 12) T_out[12 * s + tid] = T_sh[tid];
+  if (tid < 12) T_out[12 * bs + tid] = T_sh[tid];
   if (tid == 0) {
-    cost_out[s] = total[0];
-    nin_out[s] = total[1];
+    cost_out[bs] = total[0];
+    nin_out[bs] = total[1];
   }
 }
 
@@ -302,13 +309,13 @@ pose_lm_kernel(const float* __restrict__ camp, const float* __restrict__ pts,
 extern "C" int pose_lm_launch(const float* camp, const float* pts,
                               const float* uv, const float* valid,
                               const float* T0, float* T_out, float* inl_out,
-                              float* cost_out, float* nin_out, int F, int S,
-                              int rounds, int iters, float chi2_th,
+                              float* cost_out, float* nin_out, int B, int F,
+                              int S, int rounds, int iters, float chi2_th,
                               void* stream) {
   if (F > kThreads * kPerThread || rounds > 30) return (int)cudaErrorInvalidValue;
-  if (S == 0) return 0;
-  pose_lm_kernel<<<S, kThreads, 0, (cudaStream_t)stream>>>(
-      camp, pts, uv, valid, T0, T_out, inl_out, cost_out, nin_out, F, rounds,
-      iters, chi2_th);
+  if (B == 0 || S == 0) return 0;
+  pose_lm_kernel<<<B * S, kThreads, 0, (cudaStream_t)stream>>>(
+      camp, pts, uv, valid, T0, T_out, inl_out, cost_out, nin_out, F, S,
+      rounds, iters, chi2_th);
   return (int)cudaGetLastError();
 }

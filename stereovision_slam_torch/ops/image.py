@@ -85,22 +85,73 @@ def _bilinear_combine(raw: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
             + fy * fx * raw[:, 1:, 1:])
 
 
-def sample_patches(img: torch.Tensor, centers: torch.Tensor, size: int):
-    """Bilinear `size` x `size` patches centered at (N, 2) float (x, y).
+def floor_int(x: torch.Tensor) -> torch.Tensor:
+    """floor(x) as int64, with non-finite values read as 0 (they belong to
+    masked slots, whose indices only need to stay in bounds; the
+    reference's float->int conversion saturates)."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    return torch.floor(torch.clamp(x, -1e9, 1e9)).to(torch.int64)
 
-    Returns (patches (N, size, size), valid (N,)): valid when the whole patch
-    with its +1 bilinear apron is in bounds."""
-    H, W = img.shape
+
+def _patch_corners(H: int, W: int, centers: torch.Tensor, size: int):
+    """Integer corners (y0, x0) clipped into an (H, W) image, bilinear
+    fractions and the in-bounds flag of `size` patches at (N, 2) centers."""
     half = (size - 1) / 2.0
     tl = centers - half
-    base = torch.floor(tl)
-    frac = tl - base
-    x0 = torch.clamp(base[:, 0].to(torch.int64), 0, W - size - 1)
-    y0 = torch.clamp(base[:, 1].to(torch.int64), 0, H - size - 1)
+    frac = tl - torch.floor(tl)
+    x0 = torch.clamp(floor_int(tl[:, 0]), 0, W - size - 1)
+    y0 = torch.clamp(floor_int(tl[:, 1]), 0, H - size - 1)
     valid = ((tl[:, 0] >= 0.0) & (tl[:, 1] >= 0.0)
              & (tl[:, 0] + size < W) & (tl[:, 1] + size < H))
-    r = torch.arange(size + 1, device=img.device)
-    rows = (y0[:, None] + r[None])[:, :, None]
-    cols = (x0[:, None] + r[None])[:, None, :]
-    raw = img[rows, cols]
+    return y0, x0, frac, valid
+
+
+def gather_patches(imgs: torch.Tensor, group, y0, x0, size: int):
+    """(N, size+1, size+1) integer-corner windows `imgs[group, y0 + r,
+    x0 + c]` of a (G, H, W) stack: the reference's `_gather_patches_mxu`,
+    whose one-hot matmuls exist only for the TPU. Indices are clamped into
+    the image; callers pass corners already clipped, so the clamp only keeps
+    a read in bounds."""
+    G, H, W = imgs.shape
+    r = torch.arange(size + 1, device=imgs.device)
+    rows = torch.clamp(y0.to(torch.int64)[:, None] + r, 0, H - 1)
+    cols = torch.clamp(x0.to(torch.int64)[:, None] + r, 0, W - 1)
+    return imgs[group.to(torch.int64)[:, None, None], rows[:, :, None],
+                cols[:, None, :]]
+
+
+def _groups(n: int, group, device) -> torch.Tensor:
+    if group is None:
+        return torch.zeros(n, dtype=torch.int64, device=device)
+    return group
+
+
+def sample_patches(img: torch.Tensor, centers: torch.Tensor, size: int,
+                   group=None):
+    """Bilinear `size` x `size` patches centered at (N, 2) float (x, y).
+
+    img is (H, W), or (G, H, W) with `group` (N,) naming each point's image.
+    Returns (patches (N, size, size), valid (N,)): valid when the whole patch
+    with its +1 bilinear apron is in bounds."""
+    H, W = img.shape[-2:]
+    y0, x0, frac, valid = _patch_corners(H, W, centers, size)
+    stack = img if img.dim() == 3 else img[None]
+    raw = gather_patches(stack, _groups(len(centers), group, img.device),
+                         y0, x0, size)
     return _bilinear_combine(raw, frac), valid
+
+
+def sample_patches_multi(imgs: torch.Tensor, centers: torch.Tensor,
+                         size: int, group=None):
+    """Patches of C same-shape images at shared centers: imgs (C, H, W), or
+    (C, G, H, W) with `group` (N,). Bit-identical to C `sample_patches`
+    calls. Returns (patches (C, N, size, size), valid (N,))."""
+    C = imgs.shape[0]
+    H, W = imgs.shape[-2:]
+    y0, x0, frac, valid = _patch_corners(H, W, centers, size)
+    g = _groups(len(centers), group, imgs.device)
+    stacks = imgs if imgs.dim() == 4 else imgs[:, None]
+    patches = torch.stack([
+        _bilinear_combine(gather_patches(stacks[c], g, y0, x0, size), frac)
+        for c in range(C)])
+    return patches, valid

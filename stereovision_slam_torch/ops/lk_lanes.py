@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from stereovision_slam_torch.ops import _cuda
+from stereovision_slam_torch.ops.image import floor_int
 
 # Per-level margins (pixels each side a point may travel within one level).
 _MARGINS_X = (10, 14, 18, 26)
@@ -64,13 +65,6 @@ def levels_ok(pyramid, win_size: int) -> bool:
     return True
 
 
-def _floor_int(x: torch.Tensor) -> torch.Tensor:
-    """floor(x) as int64, with non-finite values read as 0 (they belong to
-    masked slots, whose indices only need to stay in bounds)."""
-    x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
-    return torch.floor(torch.clamp(x, -1e9, 1e9)).to(torch.int64)
-
-
 def _prep_level(prev_pts, guesses, frozen0, Hp: int, Wp: int, win: int,
                 Py: int, Px: int):
     """Per-point meta rows for one level (padded coordinates in and out).
@@ -81,12 +75,12 @@ def _prep_level(prev_pts, guesses, frozen0, Hp: int, Wp: int, win: int,
     tl = prev_pts - half
     tbase = torch.floor(tl)
     tfrac = tl - tbase
-    tb = _floor_int(tl)
+    tb = floor_int(tl)
     tw_x = torch.clamp(tb[:, 0] - 1, min=0)
     tw_y = torch.clamp(tb[:, 1] - 1, min=0)
     tmpl_ok = ((tl[:, 0] >= 0.0) & (tl[:, 1] >= 0.0)
                & (tl[:, 0] + win < Wp) & (tl[:, 1] + win < Hp))
-    corner = _floor_int(guesses - half)
+    corner = floor_int(guesses - half)
     cx = torch.clamp(corner[:, 0] - (Px - S) // 2, 0, max(Wp - Px, 0))
     cy = torch.clamp(corner[:, 1] - (Py - S) // 2, 0, max(Hp - Py, 0))
     f32 = torch.float32
@@ -171,8 +165,8 @@ def lk_level_plain(prev_img, cur_img, meta, *, N: int, pad: int, Py: int,
         bx0, by0 = torch.floor(locx), torch.floor(locy)
         fx = (locx - bx0)[:, None, None]
         fy = (locy - by0)[:, None, None]
-        x0 = torch.clamp(_floor_int(bx0), 0, Px - S)
-        y0 = torch.clamp(_floor_int(by0), 0, Py - S)
+        x0 = torch.clamp(floor_int(bx0), 0, Px - S)
+        y0 = torch.clamp(floor_int(by0), 0, Py - S)
         raw = big[ar, (y0[:, None] + rS)[:, :, None],
                   (x0[:, None] + rS)[:, None, :]]
         cur = bil(raw, (1 - fy) * (1 - fx), (1 - fy) * fx, fy * (1 - fx),

@@ -10,7 +10,9 @@ with the 0.3 / 5 damping schedule, and inlier re-levelling between rounds.
 The caller keeps the start with the lowest robust cost, first index on ties.
 
 `pose_lm` launches the kernel on a CUDA tensor and runs `pose_lm_plain` on a
-CPU tensor.
+CPU tensor. Both take an optional leading stream axis B (multi-stream
+serving, where the reference vmaps the solve): one launch covers every
+(stream, start), with the cameras shared.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from stereovision_slam_torch.ops import _cuda
 MAX_POINTS = 1024
 launch_count = 0
 # pose_lm_launch(camp, pts, uv, valid, T0, T_out, inl_out, cost_out, nin_out,
-#                F, S, rounds, iters, chi2_th, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float]
+#                B, F, S, rounds, iters, chi2_th, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
@@ -39,20 +41,28 @@ def cam_params(cam) -> torch.Tensor:
 
 def pose_lm_plain(camp, pts, uv, valid, T0, *, chi2_th: float, rounds: int,
                   iters: int):
-    """Plain PyTorch version of the kernel, all starts at once.
+    """Plain PyTorch version of the kernel, all streams and starts at once.
 
-    camp (2, 16); pts (F, 3); uv (F, 4) [ul, vl, ur, vr]; valid (F, 2)
-    float; T0 (S, 3, 4). Returns (T (S, 3, 4), inlier (S, 2, F) float,
-    cost (S,), n_inliers (S,))."""
+    camp (2, 16); pts ([B,] F, 3); uv ([B,] F, 4) [ul, vl, ur, vr]; valid
+    ([B,] F, 2) float; T0 ([B,] S, 3, 4). Returns (T ([B,] S, 3, 4), inlier
+    ([B,] S, 2, F) float, cost ([B,] S), n_inliers ([B,] S))."""
+    single = pts.dim() == 2
+    if single:
+        pts, uv, valid, T0 = pts[None], uv[None], valid[None], T0[None]
+    B, S = T0.shape[:2]
     f32 = torch.float32
     col = [camp[:, i][None, :, None] for i in range(16)]     # (1, 2, 1)
     fx, fy, cx, cy = col[:4]
     Re = [[col[4 + 3 * r + c] for c in range(3)] for r in range(3)]
     te = col[13:16]
-    px, py, pz = (pts[:, i][None, None, :] for i in range(3))
-    u_obs = torch.stack([uv[:, 0], uv[:, 2]])[None]          # (1, 2, F)
-    v_obs = torch.stack([uv[:, 1], uv[:, 3]])[None]
-    valid = (valid.T > 0.5)[None]                            # (1, 2, F)
+
+    def per_start(x):          # (B, ...) -> (B * S, ...), start-major
+        return x.repeat_interleave(S, dim=0)
+
+    px, py, pz = (per_start(pts[:, None, :, i]) for i in range(3))
+    u_obs = per_start(torch.stack([uv[..., 0], uv[..., 2]], dim=1))
+    v_obs = per_start(torch.stack([uv[..., 1], uv[..., 3]], dim=1))
+    valid = per_start(valid.transpose(1, 2) > 0.5)           # (BS, 2, F)
 
     def project(T):
         t = [[T[:, i, j][:, None, None] for j in range(4)] for i in range(3)]
@@ -95,15 +105,14 @@ def pose_lm_plain(camp, pts, uv, valid, T0, *, chi2_th: float, rounds: int,
     def s11(x):
         return x.sum(dim=(1, 2))
 
-    T = T0
-    S = T.shape[0]
-    inlier = valid.expand(S, -1, -1)
+    T = T0.reshape(B * S, 3, 4)
+    inlier = valid
     for rnd in range(rounds):
         use_huber = rnd < rounds - 1
         round_th = float(torch.tensor(chi2_th * float(2 ** (rounds - 1 - rnd)),
                                       dtype=f32))
         inl_f = inlier.to(f32)
-        lam = torch.full((S,), 1e-6, dtype=f32, device=T.device)
+        lam = torch.full((B * S,), 1e-6, dtype=f32, device=T.device)
 
         def robust(cq, mask):
             if use_huber:
@@ -144,41 +153,49 @@ def pose_lm_plain(camp, pts, uv, valid, T0, *, chi2_th: float, rounds: int,
     cost = s11(torch.where(valid, torch.clamp(c_fin, max=chi2_th),
                            torch.full_like(c_fin, chi2_th)))
     inl = inlier.to(f32)
-    return T, inl, cost, s11(inl)
+    out = (T.reshape(B, -1, 3, 4), inl.reshape(B, -1, 2, inl.shape[-1]),
+           cost.reshape(B, -1), s11(inl).reshape(B, -1))
+    return tuple(o[0] for o in out) if single else out
 
 
 def pose_lm(camp, pts, uv, valid, T0, *, chi2_th: float, rounds: int,
             iters: int):
-    """All S starts of the LM schedule: the CUDA kernel (one block per start)
-    on a CUDA tensor, `pose_lm_plain` on a CPU tensor. Same signature and
-    outputs as `pose_lm_plain`."""
+    """All S starts of the LM schedule, for one stream or a leading axis of
+    B streams: the CUDA kernel (one block per stream and start) on a CUDA
+    tensor, `pose_lm_plain` on a CPU tensor. Same signature and outputs as
+    `pose_lm_plain`."""
     kw = dict(chi2_th=chi2_th, rounds=rounds, iters=iters)
     if pts.device.type == "cpu":
         return pose_lm_plain(camp, pts, uv, valid, T0, **kw)
     if pts.device.type != "cuda":
         raise ValueError(f"pose_lm: unsupported device {pts.device}")
-    F, S = pts.shape[0], T0.shape[0]
-    shapes = {"camp": (2, 16), "pts": (F, 3), "uv": (F, 4), "valid": (F, 2),
-              "T0": (S, 3, 4)}
+    lead = pts.shape[:-2]
+    F, S = pts.shape[-2], T0.shape[-3]
+    B = int(lead.numel())
+    shapes = {"camp": (2, 16), "pts": (*lead, F, 3), "uv": (*lead, F, 4),
+              "valid": (*lead, F, 2), "T0": (*lead, S, 3, 4)}
     for name, t in zip(shapes, (camp, pts, uv, valid, T0)):
         if (t.shape != shapes[name] or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != pts.device):
             raise ValueError(f"pose_lm: {name} must be a contiguous float32 "
                              f"{shapes[name]} tensor on {pts.device}")
+    if len(lead) > 1:
+        raise ValueError("pose_lm: at most one stream axis")
     if F > MAX_POINTS:
         raise ValueError(f"pose_lm: at most {MAX_POINTS} points, got {F}")
     dev = pts.device
-    T_out = torch.empty((S, 3, 4), dtype=torch.float32, device=dev)
-    inl_out = torch.empty((S, 2, F), dtype=torch.float32, device=dev)
-    cost_out = torch.empty((S,), dtype=torch.float32, device=dev)
-    nin_out = torch.empty((S,), dtype=torch.float32, device=dev)
+    T_out = torch.empty((*lead, S, 3, 4), dtype=torch.float32, device=dev)
+    inl_out = torch.empty((*lead, S, 2, F), dtype=torch.float32, device=dev)
+    cost_out = torch.empty((*lead, S), dtype=torch.float32, device=dev)
+    nin_out = torch.empty((*lead, S), dtype=torch.float32, device=dev)
     fn = _cuda.function("pose_lm", "pose_lm_launch", _ARGTYPES)
     global launch_count
     launch_count += 1
     code = fn(camp.data_ptr(), pts.data_ptr(), uv.data_ptr(),
               valid.data_ptr(), T0.data_ptr(), T_out.data_ptr(),
               inl_out.data_ptr(), cost_out.data_ptr(), nin_out.data_ptr(),
-              F, S, rounds, iters, float(chi2_th), _cuda.stream_handle(pts))
+              B, F, S, rounds, iters, float(chi2_th),
+              _cuda.stream_handle(pts))
     _cuda.check(code, "pose_lm")
     return T_out, inl_out, cost_out, nin_out
 
@@ -186,21 +203,25 @@ def pose_lm(camp, pts, uv, valid, T0, *, chi2_th: float, rounds: int,
 def solve_pose_multi_lr(cam_left, cam_right, T_inits, points, uv_l, uv_r,
                         valid_l, valid_r, *, chi2_th: float = 5.991,
                         rounds: int = 4, iters: int = 10):
-    """Fused multi-start stereo pose solve.
+    """Fused multi-start stereo pose solve, for one stream or a leading axis
+    of B streams (one launch either way).
 
-    T_inits (S, 3, 4); points (F, 3); uv_l / uv_r (F, 2); valid_l / valid_r
-    (F,) bool. Returns (T (3, 4), inlier (2F,) bool [left; right],
-    num_inliers () int32 counting the left half)."""
-    F = points.shape[0]
+    T_inits ([B,] S, 3, 4); points ([B,] F, 3); uv_l / uv_r ([B,] F, 2);
+    valid_l / valid_r ([B,] F) bool. Returns (T ([B,] 3, 4), inlier ([B,]
+    2F) bool [left; right], num_inliers ([B,]) int32 counting the left
+    half)."""
     f32 = torch.float32
     camp = torch.stack([cam_params(cam_left), cam_params(cam_right)])
-    uv = torch.cat([uv_l, uv_r], dim=1).to(f32).contiguous()
-    valid = torch.stack([valid_l, valid_r], dim=1).to(f32).contiguous()
+    uv = torch.cat([uv_l, uv_r], dim=-1).to(f32).contiguous()
+    valid = torch.stack([valid_l, valid_r], dim=-1).to(f32).contiguous()
     T_all, inl_all, cost, _ = pose_lm(
         camp.contiguous(), points.to(f32).contiguous(), uv, valid,
         T_inits.to(f32).contiguous(), chi2_th=chi2_th, rounds=rounds,
         iters=iters)
-    best = torch.argmin(cost)
-    inl = inl_all[best] > 0.5
-    inlier = torch.cat([inl[0], inl[1]])
-    return T_all[best], inlier, inl[0].sum().to(torch.int32)
+    best = torch.argmin(cost, dim=-1, keepdim=True)          # ([B,] 1)
+    T = torch.take_along_dim(T_all, best[..., None, None], dim=-3)[..., 0,
+                                                                   :, :]
+    inl = torch.take_along_dim(inl_all, best[..., None, None],
+                               dim=-3)[..., 0, :, :] > 0.5    # ([B,] 2, F)
+    inlier = torch.cat([inl[..., 0, :], inl[..., 1, :]], dim=-1)
+    return T, inlier, inl[..., 0, :].sum(dim=-1).to(torch.int32)

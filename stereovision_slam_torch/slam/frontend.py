@@ -1,10 +1,12 @@
 """Tracking frontend: LK tracking, pose solve, keyframing (counterpart of
 `slam/frontend.py`).
 
-`track_step` is the reference's default topology only: frame-to-frame LK
-with landmark-reprojection guesses, then ONE batched LK call (kernel A, two
-groups) for the anchored refinement and the left->right track, then the
-multi-start stereo pose solve (kernel B). `keyframe_step` is the GFTT
+`track_step_serving` is the reference's default tracking topology over a
+leading axis of B streams: frame-to-frame LK with landmark-reprojection
+guesses, then ONE batched LK call (kernel A, 2B groups) for the anchored
+refinement and the left->right track, then the multi-start stereo pose
+solve (kernel B, all streams in one launch). `track_step` is its B = 1
+case, the single-stream step. `keyframe_step` is the GFTT
 keyframe path: detection away from tracked features, left->right LK,
 triangulation, landmark creation and keyframe insertion. The reference's
 static-size `nonzero` and dropped scatters become explicit masks
@@ -22,6 +24,7 @@ from stereovision_slam_torch.geometry.camera import Camera, pixel2camera
 from stereovision_slam_torch.ops import gftt, lk
 from stereovision_slam_torch.ops.pose_kernel import solve_pose_multi_lr
 from stereovision_slam_torch.slam import map_state as mapmod
+from stereovision_slam_torch.slam.pose_solver import solve_pose_multi
 
 
 class FrontendState(NamedTuple):
@@ -49,62 +52,92 @@ def init_state(F: int, pyramid, dtype=torch.float32) -> FrontendState:
     )
 
 
-def _landmark_guesses(cam: Camera, T_guess, m: mapmod.MapState, feat_uv,
+def _landmark_guesses(cam: Camera, T_guess, lm_pos, lm_valid, feat_uv,
                       feat_lm, feat_valid):
-    """Initial LK guesses: project linked landmarks, else keep the position.
-    Returns (guess (F, 2), lm_pos (F, 3), linked (F,))."""
-    safe = torch.clamp(feat_lm, 0, m.lm_pos.shape[0] - 1).to(torch.int64)
-    lm_pos = m.lm_pos[safe]
-    linked = feat_valid & (feat_lm >= 0) & m.lm_valid[safe]
-    proj, p_cam = jacobians.project_points(cam, T_guess, lm_pos)
+    """Initial LK guesses over a leading stream axis: project linked
+    landmarks, else keep the position. T_guess (B, 3, 4); the map's
+    lm_pos (B, L, 3) and lm_valid (B, L); the features (B, F, ...).
+    Returns (guess (B, F, 2), lm_pos (B, F, 3), linked (B, F))."""
+    safe = torch.clamp(feat_lm, 0, lm_pos.shape[1] - 1).to(torch.int64)
+    pos = torch.take_along_dim(lm_pos, safe[..., None], dim=1)
+    linked = (feat_valid & (feat_lm >= 0)
+              & torch.take_along_dim(lm_valid, safe, dim=1))
+    proj, p_cam = jacobians.project_points(cam, T_guess[:, None], pos)
     use_proj = linked & (p_cam[..., 2] > 1e-3)
-    return torch.where(use_proj[:, None], proj, feat_uv), lm_pos, linked
+    return torch.where(use_proj[..., None], proj, feat_uv), pos, linked
 
 
-def _stack_levels(*pyramids):
-    return [torch.stack(levels) for levels in zip(*pyramids)]
+def _blend_obs_cameras(cam_left: Camera, cam_right: Camera, n_left: int,
+                       n_right: int) -> Camera:
+    """Per-observation camera: the first n_left rows left, the rest right."""
+    def blend(a, b):
+        return torch.cat([a.expand((n_left,) + a.shape),
+                          b.expand((n_right,) + b.shape)])
+    return Camera(*(blend(a, b) for a, b in zip(cam_left, cam_right)))
 
 
-def track_step(fs: FrontendState, m: mapmod.MapState, cur_pyr,
-               cam_left: Camera, cur_right_pyr, cam_right: Camera,
-               chi2_th: float = 5.991, rounds: int = 4, iters: int = 10,
-               lk_iters: int = 30):
-    """Track last-frame features into the current frame and solve the pose.
-    Returns (new_state, num_inliers, num_tracked) as 0-d int32 tensors."""
-    F = fs.feat_uv.shape[0]
+def track_step_serving(fs: FrontendState, m: mapmod.MapState, cur_pyr,
+                       cam_left: Camera, cur_right_pyr, cam_right: Camera, *,
+                       chi2_th: float = 5.991, rounds: int = 4,
+                       iters: int = 10, lk_iters: int = 30,
+                       pallas_mode: str = "lanes"):
+    """The tracking step over B streams at once: state and map with a
+    leading (B, ...) axis, pyramid levels (B, H, W), shared cameras.
+
+    The two LK solves fold every stream into one call per level (G = B
+    groups, then G = 2B for the anchored refinement and the right-image
+    track); the pose solve runs all streams together. pallas_mode "lanes"
+    (the default on every device) runs kernel A and kernel B; "pallas" the
+    per-level LK with kernel C on windowed levels, and kernel B; "xla" the
+    per-level LK with its PyTorch loop and the LU pose solver, stream by
+    stream. Where a level is too small for the lanes windows, `lk` falls
+    back to the per-level route (the reference's serving path does not).
+    Returns (fs', num_inliers (B,), num_tracked (B,))."""
+    B, F = fs.feat_uv.shape[:2]
     T_guess = se3.se3_compose(fs.T_rel, fs.T_cur)
     half_rel = se3.se3_exp(0.5 * se3.se3_log(fs.T_rel))
     T_inits = torch.stack([T_guess, fs.T_cur,
-                           se3.se3_compose(half_rel, fs.T_cur)])
+                           se3.se3_compose(half_rel, fs.T_cur)], dim=1)
     guess, lm_pos, linked = _landmark_guesses(
-        cam_left, T_guess, m, fs.feat_uv, fs.feat_lm, fs.feat_valid)
+        cam_left, T_guess, m.lm_pos, m.lm_valid, fs.feat_uv, fs.feat_lm,
+        fs.feat_valid)
+    lk_kw = dict(max_iters=lk_iters, pallas_mode=pallas_mode)
 
-    # frame-to-frame first: its result seeds everything downstream ...
-    uv_a, st_a = lk.track(list(fs.pyr), list(cur_pyr), fs.feat_uv,
-                          initial_pts=guess, mask=fs.feat_valid,
-                          max_iters=lk_iters)
+    # frame-to-frame LK, all B streams folded (G = B)
+    uv_a, st_a = lk.track_batched(list(fs.pyr), list(cur_pyr), fs.feat_uv,
+                                  guess, fs.feat_valid, **lk_kw)
     status = st_a
     mask_c = fs.feat_valid & st_a & linked
-    guess_r, _, _ = _landmark_guesses(cam_right, T_guess, m, uv_a, fs.feat_lm,
-                                      fs.feat_valid)
-    # ... then the anchored refinement and the right-image track as one call
+    guess_r, _, _ = _landmark_guesses(
+        cam_right, T_guess, m.lm_pos, m.lm_valid, uv_a, fs.feat_lm,
+        fs.feat_valid)
+    # anchored refinement + right-image track, folded as G = 2B
     uv_g, st_g = lk.track_batched(
-        _stack_levels(fs.ref_pyr, cur_pyr),
-        _stack_levels(cur_pyr, cur_right_pyr),
-        torch.stack([fs.ref_uv, uv_a]), torch.stack([uv_a, guess_r]),
-        torch.stack([fs.feat_valid, mask_c]), max_iters=lk_iters)
-    cur_uv = torch.where(st_g[0][:, None], uv_g[0], uv_a)
-    uv_r, status_r = uv_g[1], st_g[1]
+        [torch.cat([r, c]) for r, c in zip(fs.ref_pyr, cur_pyr)],
+        [torch.cat([c, rr]) for c, rr in zip(cur_pyr, cur_right_pyr)],
+        torch.cat([fs.ref_uv, uv_a]), torch.cat([uv_a, guess_r]),
+        torch.cat([fs.feat_valid, mask_c]), **lk_kw)
+    cur_uv = torch.where(st_g[:B, :, None], uv_g[:B], uv_a)
+    uv_r, status_r = uv_g[B:], st_g[B:]
 
     tracked = fs.feat_valid & status
-    num_tracked = tracked.sum().to(torch.int32)
+    num_tracked = tracked.sum(dim=1).to(torch.int32)
     use = tracked & linked
-    T_new, inlier2, _ = solve_pose_multi_lr(
-        cam_left, cam_right, T_inits, lm_pos, cur_uv, uv_r, use,
-        use & status_r, chi2_th=chi2_th, rounds=rounds, iters=iters)
-    inlier = inlier2[:F]
-    num_inliers = inlier.sum().to(torch.int32)
-    # unlink outliers from their landmarks; failed tracks are dead slots
+    use_r = use & status_r
+    if pallas_mode in ("lanes", "pallas"):
+        T_new, inlier2, _ = solve_pose_multi_lr(
+            cam_left, cam_right, T_inits, lm_pos, cur_uv, uv_r, use, use_r,
+            chi2_th=chi2_th, rounds=rounds, iters=iters)
+    else:
+        cam_obs = _blend_obs_cameras(cam_left, cam_right, F, F)
+        solved = [solve_pose_multi(
+            cam_obs, T_inits[b], torch.cat([lm_pos[b], lm_pos[b]]),
+            torch.cat([cur_uv[b], uv_r[b]]), torch.cat([use[b], use_r[b]]),
+            chi2_th=chi2_th, rounds=rounds, iters=iters) for b in range(B)]
+        T_new = torch.stack([s[0] for s in solved])
+        inlier2 = torch.stack([s[1] for s in solved])
+    inlier = inlier2[:, :F]
+    num_inliers = inlier.sum(dim=1).to(torch.int32)
     feat_lm = torch.where(tracked & ~(use & ~inlier), fs.feat_lm,
                           torch.full_like(fs.feat_lm, -1))
     fs_new = FrontendState(
@@ -113,6 +146,25 @@ def track_step(fs: FrontendState, m: mapmod.MapState, cur_pyr,
         feat_uv=cur_uv, feat_lm=feat_lm, feat_valid=tracked,
         pyr=tuple(cur_pyr), ref_uv=fs.ref_uv, ref_pyr=fs.ref_pyr)
     return fs_new, num_inliers, num_tracked
+
+
+def track_step(fs: FrontendState, m: mapmod.MapState, cur_pyr,
+               cam_left: Camera, cur_right_pyr, cam_right: Camera,
+               chi2_th: float = 5.991, rounds: int = 4, iters: int = 10,
+               lk_iters: int = 30):
+    """Track last-frame features into the current frame and solve the pose:
+    `track_step_serving` on the lanes route for one stream (the same
+    kernel launches). Returns (new_state, num_inliers, num_tracked) as 0-d
+    int32 tensors."""
+    def one(x):
+        return tuple(lv[None] for lv in x) if isinstance(x, tuple) else x[None]
+    fs1, n_in, n_tr = track_step_serving(
+        FrontendState(*map(one, fs)), mapmod.MapState(*map(one, m)),
+        one(tuple(cur_pyr)), cam_left, one(tuple(cur_right_pyr)), cam_right,
+        chi2_th=chi2_th, rounds=rounds, iters=iters, lk_iters=lk_iters)
+    fs_new = FrontendState(*(tuple(lv[0] for lv in x) if isinstance(x, tuple)
+                             else x[0] for x in fs1))
+    return fs_new, n_in[0], n_tr[0]
 
 
 def keyframe_step(fs: FrontendState, m: mapmod.MapState, right_pyr,
@@ -156,8 +208,9 @@ def keyframe_step(fs: FrontendState, m: mapmod.MapState, right_pyr,
     feat_lm = fs.feat_lm
 
     # LK left -> right with reprojection guesses
-    guess_r, _, _ = _landmark_guesses(cam_right, fs.T_cur, m, feat_uv,
-                                      feat_lm, feat_valid)
+    guess_r = _landmark_guesses(
+        cam_right, fs.T_cur[None], m.lm_pos[None], m.lm_valid[None],
+        feat_uv[None], feat_lm[None], feat_valid[None])[0][0]
     uv_r, status_r = lk.track(list(fs.pyr), list(right_pyr), feat_uv,
                               initial_pts=guess_r, mask=feat_valid,
                               max_iters=lk_iters)

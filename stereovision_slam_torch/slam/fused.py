@@ -140,9 +140,11 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
                ba_iters: int = 10, num_features_init: int = 50,
                ba_max_active: int | None = 1024,
                lk_iters: int = 30, pose_rounds: int = 4, pose_iters: int = 10,
-               ba_every: int = 1):
+               ba_every: int = 1, lost_recovery: bool = True):
     """One SLAM frame. `kf_count` < 0 marks an uninitialized map (the frame
-    then runs stereo initialization). Returns (fs, ms, arc, kf_count,
+    then runs stereo initialization). `lost_recovery=False` leaves a LOST
+    frame on the tracking branch (no keyframe) instead of re-initializing,
+    as `batched.batched_fused_step` asks. Returns (fs, ms, arc, kf_count,
     FrameOutputs)."""
     both = imops.build_pyramid_batched(torch.stack([left_img, right_img]),
                                        num_levels)
@@ -183,7 +185,7 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
     kf_id = kf_count + 1
     slot = min(max(kf_id, 0), Tmax - 1)
 
-    if lost:
+    if lost and lost_recovery:
         # LOST: extrapolate the pose, drop the features, and try a fresh
         # stereo initialization as a new keyframe into the existing map
         fs_r = fresh_state(se3.se3_compose(fs.T_rel, fs.T_cur), fs.T_rel)
