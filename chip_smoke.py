@@ -33,7 +33,18 @@ Phases, in order; any failure exits non-zero:
      (`pallas_mode="pallas"`); every launch of kernel C and of the gather
      held to its plain version on its inputs, the poses to ground truth
      and to the same frames on the lanes LK;
-  9. the first serving frames again on "cpu", held to the card's run.
+  9. the first serving frames again on "cpu", held to the card's run;
+ 10. kernel D (ring all-reduce) against its plain version, bit for bit, at
+     the reference test's three meshes and at the sharded BA's payload
+     (8 ranks x 2.5 MB), with kernel, plain, bound and torch.sum times;
+ 11. the distributed BA (`build_sharded_ba`, mesh (dp 4, mp 2), 6 LM
+     iterations, compaction 2048) on the slice's final window, the dp
+     reduction by a sum and by kernel D (6 launches, each held to its plain
+     version), against each other, against the single-card BA and against
+     the same call on "cpu", with the wall time of each;
+ 12. a pose graph over the slice's keyframes (one loop edge from ground
+     truth, one with rank-deficient information) through
+     `optimize_pose_graph` and `build_sharded_pgo` (8 ranks) on the card.
 
 The last lines are the kernel table (JSON), the nvidia-smi line, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -78,6 +89,38 @@ PALLAS_FROMS, PALLAS_STEPS = (20, 40, 60), 20
 # the largest. Each kernel C launch is held to its plain version instead.
 PALLAS_DRIFT_TOL = 0.5   # m
 CPU_SERVE_STEPS = 8
+# kernel D: bit-equal to its plain version; each rank within RING_F64_TOL
+# of the float64 sum, relative to the sum of the magnitudes (a 4- or 8-term
+# float32 sum is off by at most 7 ulps of it)
+RING_F64_TOL = 1e-6
+# the five BA blocks at K = 16, La = 2048 (615,072 floats) padded to a
+# multiple of 128 x 8 x 4: 4832 rows of 128 per rank
+RING_PATH_ROWS = 4832
+SHARDED_LA = 2048
+SHARD_NOISE, SHARD_SEED = (0.01, 0.1), 3   # tangent, landmark metres
+# (poses, landmarks in m, landmarks per m of distance from the gauge
+# keyframe's camera); a landmark is held to max(2nd, 3rd x distance).
+# Ring vs xla (tests/test_ring_reduce.py:64-65) and sharded vs single-card
+# (tests/test_sharded_ba.py:38-44): the tests' tolerances, which they
+# hold on windows whose landmarks are at most 45 m deep, so per metre
+# their landmark tolerance / 45 m. The slice's window holds landmarks
+# 200-300 m deep seen by one keyframe only, whose position along the ray
+# is barely observable: single-card BA (adjugate 3x3 inverse, incumbent
+# cost from the linearization) and sharded BA (LU inverse, cost evaluated
+# twice) part there by 0.127 m at 260 m after 6 iterations on the CPU
+# (4.9e-4 of the distance), 2e-3 m after 1. Cpu vs card: the poses to
+# 1e-4, and a landmark to 1e-4 per metre, the lever arm of a 1e-4 rotation
+# (readings on the H100: poses 3.6e-6, landmarks 3.4e-4 m at 38 m, 8.8e-6
+# of the distance; the tests' 1e-4 m flat failed on 105 landmarks).
+# Ring vs xla cannot show a sum-order fault of kernel D on this window: each
+# cross block G[l, k] gets at most two non-zero terms (the left and right
+# observation of one feature), and ring chunk 0, which holds H_pp, b_p, H_ll
+# and b_l, sums in rank order as `sum(0)` does, so the two agree bit for
+# bit. `ring_held` holds every launch of the path to its plain version.
+SHARD_RING_TOL = (1e-5, 1e-4, 1e-4 / 45)
+SHARD_SINGLE_TOL = (5e-3, 5e-2, 5e-2 / 45)
+SHARD_CPU_TOL = (1e-4, 1e-4, 1e-4)
+PGO_SHARD_TOL = 5e-2     # tests/test_sharded_pgo.py:30-31
 
 
 def check(ok: bool, msg: str) -> None:
@@ -348,9 +391,10 @@ def run_slice(lefts, rights, rig, device):
     return vo, dt
 
 
-def profile_run(label: str, vo, frames: int) -> None:
-    """Device busy share and the top kernels while `vo.run()` drives
-    `frames` frames, under torch.profiler, then the profiler's tables."""
+def profile_run(label: str, run, units: int, unit: str = "frames") -> None:
+    """Device busy share and the top kernels while `run()` does `units`
+    units of work (frames, calls), under torch.profiler, then the
+    profiler's tables."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -359,7 +403,8 @@ def profile_run(label: str, vo, frames: int) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        vo.run()
+        run()
+        torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     ka = prof.key_averages()
 
@@ -371,10 +416,10 @@ def profile_run(label: str, vo, frames: int) -> None:
                and not e.is_user_annotation]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    print(f"profile {label}: {frames} frames in {dt * 1e3:.1f} ms (under the "
+    print(f"profile {label}: {units} {unit} in {dt * 1e3:.1f} ms (under the "
           f"profiler), device busy {busy_ms:.1f} ms = "
           f"{100 * busy_ms / (dt * 1e3):.1f}% of that, {launches} device "
-          f"kernels = {launches / frames:.0f} per frame")
+          f"kernels = {launches / units:.0f} per {unit.rstrip('s')}")
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     print(f"profile {label} top kernels: " + "; ".join(
         f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top))
@@ -769,11 +814,315 @@ def cpu_serving(streams, rig, vo_card):
     check(diff < tol, f"cuda and cpu serving runs differ by {diff}")
 
 
+def check_ring(dev):
+    """Phase 10: kernel D against its plain version, bit for bit and within
+    RING_F64_TOL of the float64 sum, at the reference test's three meshes
+    (its 302-float tree per rank, scaled per rank, padded as `ring_psum`
+    pads it) and at the sharded BA's payload; times at the latter."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch.parallel import ring_reduce as rr
+
+    rng = np.random.default_rng(0)
+    tree = rng.normal(size=8 * 5 * 7 + 13 + 9).astype(np.float32)
+    cases = []
+    for axis, dp, mp in (("dp", 8, 1), ("dp", 4, 2), ("mp", 2, 4)):
+        n = dp if axis == "dp" else mp
+        scale = (1.0 + 2.0 * np.arange(dp)[:, None]
+                 + np.arange(mp)[None, :]).reshape(-1, 1).astype(np.float32)
+        flat = np.zeros((dp * mp, 8 * n * rr.LANES), np.float32)
+        flat[:, :tree.size] = tree[None] * scale
+        cases.append((axis, dp, mp, torch.tensor(
+            flat.reshape(dp * mp, -1, rr.LANES), device=dev)))
+    R = RING_PATH_ROWS
+    cases.append(("dp", 4, 2, torch.tensor(
+        rng.normal(size=(8, R, rr.LANES)).astype(np.float32), device=dev)))
+    err = 0.0
+    for axis, dp, mp, x in cases:
+        ma = (("dp", dp), ("mp", mp))
+        k = rr.ring_all_reduce_flat(x, axis, ma)
+        p = rr.ring_all_reduce_plain(x, axis, ma)
+        torch.cuda.synchronize()
+        ax = 0 if axis == "dp" else 1
+        x64 = x.double().reshape(dp, mp, *x.shape[1:])
+        ref = x64.sum(ax, keepdim=True).expand_as(x64).reshape(x.shape)
+        mag = x64.abs().sum(ax, keepdim=True).expand_as(x64).reshape(x.shape)
+        rel = float(((k.double() - ref).abs() / mag.clamp(min=1e-30)).max())
+        e = float((k - p).abs().max())
+        err = max(err, e)
+        print(f"kernel D mesh ({dp}, {mp}) along {axis}, payload "
+              f"{tuple(x.shape)}: bit-equal {torch.equal(k, p)}, largest "
+              f"error to the float64 sum {rel:.2e} of the magnitudes")
+        check(torch.equal(k, p), f"kernel D differs from its plain version "
+              f"on mesh ({dp}, {mp}) along {axis}: {e}")
+        check(rel <= RING_F64_TOL, f"kernel D is {rel} off the float64 sum")
+    axis, dp, mp, x = cases[-1]
+    ma = (("dp", dp), ("mp", mp))
+    ms = cuda_ms(lambda: rr.ring_all_reduce_flat(x, axis, ma, check=False),
+                 50)
+    rr.check_errors(x.device)
+    plain_ms = cuda_ms(lambda: rr.ring_all_reduce_plain(x, axis, ma), 5)
+    lib_ms = cuda_ms(lambda: x.view(dp, mp, R, rr.LANES).sum(0), 50)
+    # each input read once, each output written once; n - 1 adds for each
+    # element of each ring's sum
+    b, by = bound_ms(2 * 4 * x.numel(), x.numel() * (dp - 1) / dp)
+    print(f"kernel D at the sharded BA payload (8 ranks x {R} x 128): "
+          f"{ms:.4f} ms per launch, plain {plain_ms:.3f} ms, torch.sum over "
+          f"the ring axis {lib_ms:.4f} ms, bound {b:.6f} ms ({by})")
+    return dict(name="ring_all_reduce", route="cuda",
+                source="stereovision_slam_torch/csrc/ring_reduce.cu",
+                replaces="stereovision_slam_tpu/parallel/ring_reduce.py:39",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms)
+
+
+@contextlib.contextmanager
+def ring_held(records: list):
+    """While active, every launch of kernel D is compared with its plain
+    version on the same payload; `records` gets one dict per launch. The
+    path's own result is returned unchanged."""
+    import torch
+    from stereovision_slam_torch.parallel import ring_reduce as rr
+
+    kernel = rr.ring_all_reduce_flat
+
+    def held(x, axis_name, mesh_axes):
+        k = kernel(x, axis_name, mesh_axes)
+        p = rr.ring_all_reduce_plain(x, axis_name, mesh_axes)
+        records.append(dict(shape=tuple(x.shape), equal=torch.equal(k, p),
+                            err=float((k - p).abs().max())))
+        return k
+
+    rr.ring_all_reduce_flat = held
+    try:
+        yield
+    finally:
+        rr.ring_all_reduce_flat = kernel
+
+
+def timed(fn):
+    """(result, host seconds) of fn(), ending in synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sharded_ba_phase(vo, counters, dev, err_d: float, profile: bool):
+    """Phase 11: the distributed BA on the slice's final window, mesh
+    (dp 4, mp 2) on the card, "xla" and "ring" (kernel D, every launch held
+    to its plain version), against each other, against the single-card
+    BA, and the ring run again on the CPU. Returns (launches, the largest
+    kernel D error)."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch.geometry import se3
+    from stereovision_slam_torch.parallel.mesh import make_ba_mesh
+    from stereovision_slam_torch.parallel.sharded_ba import build_sharded_ba
+    from stereovision_slam_torch.slam.backend import optimize_window
+
+    cfg = bench_config()
+    m, cl, cr = vo.ms, vo.cam_left, vo.cam_right
+    K, F = m.obs_lm.shape
+    L = m.lm_pos.shape[0]
+    iters, La = cfg.ba_lm_iters, SHARDED_LA
+    active = int((m.lm_valid & (m.lm_obs_count > 0)).sum())
+    n_obs = int((m.obs_valid & (m.obs_lm >= 0) & m.kf_valid[:, None]).sum())
+    # the slice's last BA pass left this window at its minimum: seeded
+    # noise on the poses (but the gauge-fixed oldest) and the landmarks
+    # gives the solvers work, on the slice's own observations
+    rng = np.random.default_rng(SHARD_SEED)
+    oldest = torch.min(torch.where(m.kf_valid, m.kf_id,
+                                   torch.full_like(m.kf_id, 2 ** 31 - 1)))
+    free = (m.kf_valid & (m.kf_id != oldest))[:, None, None]
+    dxi = torch.tensor(rng.normal(0, SHARD_NOISE[0], (K, 6)),
+                       dtype=torch.float32, device=dev)
+    dl = torch.tensor(rng.normal(0, SHARD_NOISE[1], (L, 3)),
+                      dtype=torch.float32, device=dev)
+    m = m._replace(
+        kf_pose=torch.where(free, se3.se3_compose(se3.se3_exp(dxi),
+                                                  m.kf_pose), m.kf_pose),
+        lm_pos=torch.where(m.lm_valid[:, None], m.lm_pos + dl, m.lm_pos))
+    print(f"sharded BA window: K {K}, F {F}, L {L}, {int(m.kf_valid.sum())} "
+          f"keyframes, {active} active landmarks, {n_obs} left "
+          f"observations, La {La}, {iters} LM iterations, mesh (4, 2); "
+          f"poses and landmarks perturbed by N(0, {SHARD_NOISE[0]}) tangent "
+          f"and N(0, {SHARD_NOISE[1]}) m noise, seed {SHARD_SEED}")
+    check(active <= La, f"{active} active landmarks overflow La = {La}")
+    mesh = make_ba_mesh(dp=4, mp=2, device=dev)
+    kw = dict(chi2_th=cfg.chi2_th, iters=iters, max_active_landmarks=La)
+    run_x = build_sharded_ba(mesh, K, F, L, reduce_impl="xla", **kw)
+    run_r = build_sharded_ba(mesh, K, F, L, reduce_impl="ring", **kw)
+    kx, lx = run_x(m, cl, cr)
+    for mod in counters.values():
+        mod.launch_count = 0
+    records = []
+    with ring_held(records):
+        kr, lr = run_r(m, cl, cr)
+        torch.cuda.synchronize()
+    launches = {k: mod.launch_count for k, mod in counters.items()}
+    equal = all(r["equal"] for r in records)
+    err = max([r["err"] for r in records] + [err_d])
+    print(f"sharded BA ring: launches {launches}; {len(records)} kernel D "
+          f"launches on payload {records[0]['shape'] if records else None}, "
+          f"all bit-equal to the plain version: {equal}")
+    check(launches["ring_all_reduce"] == iters,
+          f"kernel D launched {launches['ring_all_reduce']} times, not "
+          f"{iters}")
+    check(equal, "a kernel D launch of the sharded BA differs from its "
+          "plain version")
+    ms1, _ = optimize_window(m, cl, cr, chi2_th=cfg.chi2_th, iters=iters,
+                             outlier_rounds=0, max_active_landmarks=La)
+    kv, lv = m.kf_valid, m.lm_valid
+
+    # landmarks are held within max(tol[1], tol[2] x distance from the
+    # gauge keyframe's camera): see SHARD_RING_TOL
+    gauge = m.kf_pose[int(torch.argmax((m.kf_id == oldest).int()))]
+    centre = -gauge[:, :3].T @ gauge[:, 3]
+    dist = torch.linalg.vector_norm(m.lm_pos - centre, dim=-1).clamp(min=1.0)
+
+    def compare(name, k_a, l_a, k_b, l_b, tol):
+        dk = float((k_a - k_b).abs()[kv].max())
+        dl = (l_a - l_b).abs().amax(-1).to(dist.device)[lv]
+        rel = dl / dist[lv]
+        worst = int(torch.argmax(rel))
+        over = dl > torch.clamp(tol[2] * dist[lv], min=tol[1])
+        print(f"  {name}: poses {dk:.3e} (tolerance {tol[0]}), landmarks "
+              f"{float(dl.max()):.3e} m, {float(rel.max()):.3e} of their "
+              f"distance (worst {float(dl[worst]):.3e} m at "
+              f"{float(dist[lv][worst]):.1f} m), {int(over.sum())} over "
+              f"max({tol[1]}, {tol[2]:.2e} x distance)")
+        return dk <= tol[0] and not bool(over.any()), f"{name}: {dk}, " \
+            f"{float(dl.max())}"
+
+    m_cpu = type(m)(*(t.cpu() for t in m))
+    kc, lc = build_sharded_ba(make_ba_mesh(dp=4, mp=2, device="cpu"), K, F,
+                              L, reduce_impl="ring", **kw)(
+        m_cpu, cl.to("cpu"), cr.to("cpu"))
+    print(f"sharded BA moved the poses by up to "
+          f"{float((kr - m.kf_pose).abs().max()):.3e}; differences:")
+    results = [
+        compare("ring vs xla", kr, lr, kx, lx, SHARD_RING_TOL),
+        compare("xla vs single-card BA", kx, lx, ms1.kf_pose, ms1.lm_pos,
+                SHARD_SINGLE_TOL),
+        compare("ring vs single-card BA", kr, lr, ms1.kf_pose, ms1.lm_pos,
+                SHARD_SINGLE_TOL),
+        compare("cpu ring vs card ring", kc.to(dev), lc.to(dev), kr, lr,
+                SHARD_CPU_TOL)]
+    for ok, msg in results:
+        check(ok, f"sharded BA out of tolerance, {msg}")
+    check(bool(torch.isfinite(kr).all() and torch.isfinite(lr).all()),
+          "sharded BA gave non-finite values")
+    # wall time of one call each, warm
+    for _ in range(2):
+        _, t_r = timed(lambda: run_r(m, cl, cr))
+        _, t_x = timed(lambda: run_x(m, cl, cr))
+        _, t_1 = timed(lambda: optimize_window(
+            m, cl, cr, chi2_th=cfg.chi2_th, iters=iters, outlier_rounds=0,
+            max_active_landmarks=La))
+    print(f"sharded BA wall time per call (host clock, ends in "
+          f"synchronize): ring {t_r * 1e3:.1f} ms, xla {t_x * 1e3:.1f} ms; "
+          f"single-card optimize_window {t_1 * 1e3:.1f} ms")
+    if profile:
+        profile_run("sharded BA (ring)", lambda: run_r(m, cl, cr), 1,
+                    "calls")
+        profile_run("single-card BA", lambda: optimize_window(
+            m, cl, cr, chi2_th=cfg.chi2_th, iters=iters, outlier_rounds=0,
+            max_active_landmarks=La), 1, "calls")
+    return launches, err
+
+
+def pgo_phase(keyframes, gt, dev, profile: bool) -> None:
+    """Phase 12: a pose graph over the slice's keyframes (consecutive edges
+    from the estimated poses, first -> last from ground truth, one loop
+    edge with rank-deficient information), optimized on the card by
+    `optimize_pose_graph` and by `build_sharded_pgo` over 8 ranks."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch.geometry import se3
+    from stereovision_slam_torch.parallel.mesh import make_ba_mesh
+    from stereovision_slam_torch.parallel.sharded_pgo import build_sharded_pgo
+    from stereovision_slam_torch.slam import pose_graph as pg
+
+    kfs = sorted(keyframes.values(), key=lambda fp: fp[0])
+    fids = [f for f, _ in kfs]
+    P = torch.tensor(np.stack([p for _, p in kfs]), dtype=torch.float32,
+                     device=dev)
+    G = torch.tensor(np.asarray(gt)[fids], dtype=torch.float32, device=dev)
+    T = len(kfs)
+    mid = T // 2
+    ei = list(range(1, T)) + [T - 1, mid]
+    ej = list(range(0, T - 1)) + [0, 0]
+    meas = se3.se3_compose(P[1:], se3.se3_inverse(P[:-1]))
+    loop = se3.se3_compose(G[T - 1], se3.se3_inverse(G[0]))
+    # the mid -> first edge from ground truth, wrong by 0.5 m along a
+    # direction its information cannot see
+    u = torch.tensor([0.0, 0.45, 0.0, 0.2, 0.0, 0.0], device=dev)
+    u = u / torch.linalg.vector_norm(u)
+    blind = se3.se3_compose(se3.se3_exp(0.5 * u), se3.se3_compose(
+        G[mid], se3.se3_inverse(G[0])))
+    meas = torch.cat([meas, loop[None], blind[None]])
+    E = meas.shape[0]
+    A = se3.se3_adjoint(blind)
+    H = A.T @ (torch.eye(6, device=dev) - torch.outer(u, u)) @ A
+    H = H / torch.linalg.eigvalsh(H).max()
+    info = torch.eye(6, device=dev).repeat(E, 1, 1)
+    info[-1] = H
+    ones = torch.ones(T, dtype=torch.bool, device=dev)
+    g = pg.PoseGraph(P, ones, torch.tensor(ei, device=dev),
+                     torch.tensor(ej, device=dev), meas,
+                     torch.ones(E, dtype=torch.bool, device=dev), info)
+    rank = int(torch.linalg.matrix_rank(info[-1]))
+    # each timed twice: the first call on the card pays one-time set-up
+    out1, t1_cold = timed(lambda: pg.optimize_pose_graph(g))
+    _, t1 = timed(lambda: pg.optimize_pose_graph(g))
+    mesh = make_ba_mesh(8, device=dev)
+    outs, ts_cold = timed(lambda: build_sharded_pgo(mesh)(g))
+    _, ts = timed(lambda: build_sharded_pgo(mesh)(g))
+
+    def chi2(poses):
+        r, _, _ = pg._linearize(pg._edge_ranks(g._replace(poses=poses)),
+                                jacobians_too=False)
+        return float(r.square().sum())
+
+    def centre(T34):
+        return -T34[..., :3, :3].transpose(-1, -2).matmul(
+            T34[..., :3, 3:]).squeeze(-1)
+
+    def end_err(poses):
+        return float(torch.linalg.vector_norm(centre(poses[-1])
+                                              - centre(G[-1])))
+
+    d = float((outs - out1).abs().max())
+    c0, c1, cs = chi2(P), chi2(out1), chi2(outs)
+    e0, e1, es = end_err(P), end_err(out1), end_err(outs)
+    print(f"PGO: {T} keyframes, {E} edges (padded to a multiple of the "
+          f"{mesh.size} ranks; the blind loop edge's info of rank {rank}); "
+          f"single {t1_cold:.2f} s first, {t1:.2f} s again, sharded "
+          f"{ts_cold:.2f} s, {ts:.2f} s (host clock); "
+          f"sharded vs single {d:.3e} (tolerance {PGO_SHARD_TOL}); chi2 "
+          f"{c0:.4e} -> {c1:.4e} single, {cs:.4e} sharded; last keyframe "
+          f"{e0:.4f} m from ground truth before, {e1:.4f} m after "
+          f"(sharded {es:.4f} m)")
+    check(rank < 6, "the loop edge's information is not rank-deficient")
+    check(bool(torch.isfinite(out1).all() and torch.isfinite(outs).all()),
+          "PGO gave non-finite poses")
+    check(d <= PGO_SHARD_TOL and cs <= c1 * 1.05 + 1e-8,
+          f"sharded PGO differs from single PGO: {d}, chi2 {cs} vs {c1}")
+    check(e1 < e0 and es < e0, f"PGO did not bring the last keyframe closer "
+          f"to ground truth: {e0} -> {e1}, {es}")
+    if profile:
+        profile_run("PGO", lambda: pg.optimize_pose_graph(g), 1, "solves")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", type=int, default=0,
                     help="also profile this many frames of the slice and "
-                         "of the serving streams")
+                         "of the serving streams, and one call each of the "
+                         "sharded BA, the single-card BA and PGO")
     args = ap.parse_args()
     try:
         import numpy as np
@@ -789,6 +1138,7 @@ def main() -> int:
         from stereovision_slam_torch import scenes
         from stereovision_slam_torch.ops import (
             _cuda, gather, lk_iterate, lk_lanes, pose_kernel)
+        from stereovision_slam_torch.parallel import ring_reduce
     except ImportError as e:
         print(f"chip_smoke: the port is missing: {e}", file=sys.stderr)
         return 1
@@ -821,7 +1171,8 @@ def main() -> int:
 
     # 4. the slice on the card, counters read around this run only
     counters = {"lk_level": lk_lanes, "pose_lm": pose_kernel,
-                "lk_iterate": lk_iterate, "gather_windows": gather}
+                "lk_iterate": lk_iterate, "gather_windows": gather,
+                "ring_all_reduce": ring_reduce}
     T = len(lefts)
     for mod in counters.values():
         mod.launch_count = 0
@@ -862,7 +1213,8 @@ def main() -> int:
 
     if args.profile:
         n = args.profile
-        profile_run("slice", slice_vo(lefts[:n], rights[:n], rig, dev), n - 1)
+        profile_run("slice", slice_vo(lefts[:n], rights[:n], rig, dev).run,
+                    n - 1)
 
     # 5. the first frames again on the CPU (plain versions)
     n_cpu = CPU_FRAMES
@@ -901,17 +1253,26 @@ def main() -> int:
         vo_p = make_serving([(l[:n + 1], r[:n + 1], g) for l, r, g in streams],
                             rig, dev)
         vo_p.initialize()
-        profile_run("serving", vo_p, SERVE_B * n)
+        profile_run("serving", vo_p.run, SERVE_B * n)
 
     # 9. the first serving frames again on the CPU
     cpu_serving(streams, rig, vo_s)
 
+    # 10-12. kernel D, the sharded BA on the slice's final window, PGO
+    kernels.append(check_ring(dev))
+    by_path["sharded_ba"], kernels[-1]["max_abs_err"] = sharded_ba_phase(
+        vo, counters, dev, kernels[-1]["max_abs_err"], bool(args.profile))
+    pgo_phase(keyframes, gt, dev, bool(args.profile))
+
     # launches: kernels A and B on the slice (the main path), kernel C and
-    # the gather on the serving run with the per-level LK; every path's
-    # counts beside them
+    # the gather on the serving run with the per-level LK, kernel D on the
+    # sharded BA; every path's counts beside them
+    main_path = {"lk_level": "slice", "pose_lm": "slice",
+                 "lk_iterate": "serving_pallas",
+                 "gather_windows": "serving_pallas",
+                 "ring_all_reduce": "sharded_ba"}
     for k in kernels:
-        path = "slice" if k["name"] in ("lk_level", "pose_lm") \
-            else "serving_pallas"
+        path = main_path[k["name"]]
         k["launches"] = by_path[path][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     print(json.dumps({"kernels": [

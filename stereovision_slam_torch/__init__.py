@@ -7,8 +7,11 @@ stays unchanged). Same layout and names, so each module has a counterpart:
     DLT triangulation;
   * `ops/` - image pyramids, GFTT, pyramidal LK (kernel A, `csrc/lk_level.cu`)
     and the fused multi-start pose solve (kernel B, `csrc/pose_lm.cu`);
-  * `slam/` - config, map state, frontend, sliding-window Schur BA and the
-    fused per-frame step (`FusedVisualOdometry`);
+  * `slam/` - config, map state, frontend, sliding-window Schur BA, the
+    fused per-frame step (`FusedVisualOdometry`), multi-stream serving and
+    the pose graph;
+  * `parallel/` - the (dp, mp) rank mesh on one device, the ring all-reduce
+    (kernel D, `csrc/ring_reduce.cu`), sharded BA and sharded PGO;
   * `csrc/` - hand-written CUDA C++ for Hopper (sm_90a), built with nvcc at
     first use and loaded through ctypes (see `ops/_cuda.py`).
 

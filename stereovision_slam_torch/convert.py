@@ -2,9 +2,10 @@
 
 Turns the JAX package's values, given as array-likes (numpy arrays, or any
 object `np.asarray` accepts), into the port's tensors: `Camera`, `MapState`,
-`FrontendState`, `ArchiveState` and `SlamConfig` fields. Both packages keep
-the same fixed capacities and slot order, so a converted state is the same
-state, and tests can start both packages from one mid-sequence state. A
+`FrontendState`, `ArchiveState`, `PoseGraph` and `SlamConfig` fields. Both
+packages keep the same fixed capacities and slot order, so a converted
+state is the same state, and tests can start both packages from one
+mid-sequence state. A
 stacked multi-stream state (every field with a leading (B, ...) axis,
 pyramid levels (B, H, W)) converts the same way, into the state of
 `slam/batched.py`. `to_numpy` goes the other way for comparisons.
@@ -22,6 +23,7 @@ from stereovision_slam_torch.slam.config import SlamConfig
 from stereovision_slam_torch.slam.frontend import FrontendState
 from stereovision_slam_torch.slam.fused import ArchiveState
 from stereovision_slam_torch.slam.map_state import MapState
+from stereovision_slam_torch.slam.pose_graph import PoseGraph
 
 
 def tensor(x, device="cpu") -> torch.Tensor:
@@ -54,6 +56,14 @@ def frontend_state(src, device="cpu") -> FrontendState:
         else:
             vals[f] = tensor(v, device)
     return FrontendState(**vals)
+
+
+def pose_graph(src, device="cpu") -> PoseGraph:
+    """A `PoseGraph`, its `edge_info` kept as None where the source has
+    none."""
+    return PoseGraph(*(None if getattr(src, f) is None
+                       else tensor(getattr(src, f), device)
+                       for f in PoseGraph._fields))
 
 
 def slam_config(src) -> SlamConfig:

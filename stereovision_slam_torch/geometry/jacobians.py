@@ -56,6 +56,13 @@ def reprojection_residual_jac(cam: Camera, T_c_w: torch.Tensor,
     return r, J_pose, J_point, p_cam
 
 
+def relative_pose_residual(T0: torch.Tensor, T1: torch.Tensor,
+                           T01_meas: torch.Tensor) -> torch.Tensor:
+    """Pose-graph edge residual r = log(T01_meas^-1 * T0 * T1^-1), (..., 6)."""
+    return se3.se3_log(se3.se3_compose(
+        se3.se3_inverse(T01_meas), se3.se3_compose(T0, se3.se3_inverse(T1))))
+
+
 def huber_weight(r2: torch.Tensor, delta2) -> torch.Tensor:
     """IRLS weight of the Huber kernel on squared error r2, threshold
     delta2."""

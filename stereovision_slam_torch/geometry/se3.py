@@ -165,3 +165,14 @@ def se3_distance(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
     """||log(Ta * Tb^-1)||, the keyframe-eviction distance."""
     return torch.linalg.vector_norm(
         se3_log(se3_compose(Ta, se3_inverse(Tb))), dim=-1)
+
+
+def se3_adjoint(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint (..., 6, 6) for the [v, w] ordering, Adj = [[R, hat(t) R],
+    [0, R]]: T exp(xi) T^-1 = exp(Adj(T) xi). It transports tangent-frame
+    quadratic forms, e.g. a loop edge's PnP Hessian into the pose-graph
+    residual frame: info = Adj(meas)^T H Adj(meas)."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    top = torch.cat([R, torch.matmul(so3_hat(t), R)], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)

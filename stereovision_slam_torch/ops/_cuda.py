@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lk_level", "pose_lm", "lk_iterate", "gather_windows")
+SOURCES = ("lk_level", "pose_lm", "lk_iterate", "gather_windows",
+           "ring_reduce")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]

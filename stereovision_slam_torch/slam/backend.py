@@ -51,6 +51,33 @@ def flatten_observations(m: mapmod.MapState) -> BAObservations:
         valid=torch.cat([base, has_r]))
 
 
+def _blend_cameras(cam_left: Camera, cam_right: Camera,
+                   is_right: torch.Tensor) -> Camera:
+    """Per-observation camera parameters chosen by the left/right flag (M,),
+    for the observation-sharded BA (`parallel/sharded_ba.py`)."""
+    s = is_right
+    sf = s.to(cam_left.pose.dtype)[:, None, None]
+
+    def pick(a, b):
+        return torch.where(s, b, a)
+    return Camera(fx=pick(cam_left.fx, cam_right.fx),
+                  fy=pick(cam_left.fy, cam_right.fy),
+                  cx=pick(cam_left.cx, cam_right.cx),
+                  cy=pick(cam_left.cy, cam_right.cy),
+                  baseline=pick(cam_left.baseline, cam_right.baseline),
+                  pose=(1.0 - sf) * cam_left.pose + sf * cam_right.pose,
+                  pose_inv=(1.0 - sf) * cam_left.pose_inv
+                  + sf * cam_right.pose_inv)
+
+
+def _residuals(cam_obs: Camera, kf_pose, lm_pos, obs: BAObservations):
+    """Residuals and Jacobians of every observation with its own camera
+    (`_blend_cameras`). Returns (r, J_pose, J_point, in_front)."""
+    r, Jp, Jl, p_cam = jacobians.reprojection_residual_jac(
+        cam_obs, kf_pose[obs.kf], lm_pos[torch.clamp(obs.lm, min=0)], obs.uv)
+    return r, Jp, Jl, p_cam[..., 2] > 1e-6
+
+
 def _residuals_lr(cam_left: Camera, cam_right: Camera, kf_pose, lm_pos,
                   obs: BAObservations):
     """Residuals and Jacobians, left half with the left camera, right half
@@ -66,34 +93,39 @@ def _residuals_lr(cam_left: Camera, cam_right: Camera, kf_pose, lm_pos,
     return r, Jp, Jl, p_cam[..., 2] > 1e-6
 
 
-def _assemble(r, J_pose, J_point, w, obs: BAObservations, K: int, L: int):
+def _assemble(r, J_pose, J_point, w, obs: BAObservations, K: int, L: int,
+              rank: torch.Tensor | int = 0, n_ranks: int = 1):
     """Scatter-add the weighted normal-equation blocks (rows with w = 0 add
-    nothing). The scatters accumulate in float64: on the card `index_add_`
-    adds with atomics in an order that changes from run to run, and float32
-    sums in changing orders made whole trajectories differ between two runs
-    of the same input; float64 sums rounded once to float32 do not."""
+    nothing), per rank: observation m goes into the blocks of rank[m], and
+    every block has a leading (n_ranks,) axis (the sharded BA's dp ranks;
+    one rank for the single-card BA). The scatters accumulate in float64:
+    on the card `index_add_` adds with atomics in an order that changes
+    from run to run, and float32 sums in changing orders made whole
+    trajectories differ between two runs of the same input; float64 sums
+    rounded once to float32 do not."""
     on = w != 0
     wJp = torch.where(on[:, None, None], J_pose * w[:, None, None], 0.0)
     wJl = torch.where(on[:, None, None], J_point * w[:, None, None], 0.0)
     J_pose = torch.where(on[:, None, None], J_pose, 0.0)
     J_point = torch.where(on[:, None, None], J_point, 0.0)
     r = torch.where(on[:, None], r, 0.0)
-    kf_i = obs.kf
-    lm_i = torch.where(on, obs.lm, torch.zeros_like(obs.lm))
+    lm = torch.where(on, obs.lm, torch.zeros_like(obs.lm))
+    kf_i, lm_i = rank * K + obs.kf, rank * L + lm
     dt, dev = r.dtype, r.device
 
     def scatter(n, idx, blocks):
-        acc = torch.zeros((n,) + blocks.shape[1:], dtype=torch.float64,
-                          device=dev)
-        return acc.index_add_(0, idx, blocks.to(torch.float64)).to(dt)
+        acc = torch.zeros((n_ranks * n,) + blocks.shape[1:],
+                          dtype=torch.float64, device=dev)
+        acc.index_add_(0, idx, blocks.to(torch.float64))
+        return acc.to(dt).reshape((n_ranks, n) + blocks.shape[1:])
 
     H_pp = scatter(K, kf_i, torch.einsum("nab,nac->nbc", wJp, J_pose))
     b_p = scatter(K, kf_i, torch.einsum("nab,na->nb", wJp, r))
     H_ll = scatter(L, lm_i, torch.einsum("nab,nac->nbc", wJl, J_point))
     b_l = scatter(L, lm_i, torch.einsum("nab,na->nb", wJl, r))
-    G = scatter(L * K, lm_i * K + kf_i,
+    G = scatter(L * K, lm_i * K + obs.kf,
                 torch.einsum("nab,nac->nbc", wJp, J_point))
-    return H_pp, b_p, H_ll, b_l, G.reshape(L, K, 6, 3)
+    return H_pp, b_p, H_ll, b_l, G.reshape(n_ranks, L, K, 6, 3)
 
 
 def _inv3x3(A: torch.Tensor) -> torch.Tensor:
@@ -207,7 +239,8 @@ def optimize_window(m: mapmod.MapState, cam_left: Camera, cam_right: Camera,
         c = torch.sum(r * r, dim=-1)
         use = obs_c.valid & in_front
         w = torch.where(use, jacobians.huber_weight(c, huber_d2), 0.0)
-        H_pp, b_p, H_ll, b_l, G = _assemble(r, Jp, Jl, w, obs_c, K, L_solve)
+        H_pp, b_p, H_ll, b_l, G = (b[0] for b in _assemble(
+            r, Jp, Jl, w, obs_c, K, L_solve))
         dx_p, dx_l = schur_solve(H_pp, b_p, H_ll, b_l, G, lam, kf_free,
                                  lm_active_c)
         kf_new = se3.se3_compose(se3.se3_exp(dx_p), kf_pose)

@@ -9,7 +9,8 @@ Tolerances: kernels A and C run the plain versions' float32 steps (built
 with --fmad=false) and differ at most in sum order, so flags are equal and
 positions agree within 1e-3 px; the window gather copies pixels, bit for
 bit; kernel B's pose agrees within 1e-4 and its inlier sets are equal, for
-one stream and for every (stream, start) of a batched launch.
+one stream and for every (stream, start) of a batched launch; kernel D (the
+ring all-reduce) adds the plain version's numbers in its order, bit for bit.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ from stereovision_slam_torch.geometry import jacobians, se3
 from stereovision_slam_torch.ops import gather, gftt, image as imops, lk
 from stereovision_slam_torch.ops import lk_iterate, lk_lanes
 from stereovision_slam_torch.ops import pose_kernel as pk
+from stereovision_slam_torch.parallel import ring_reduce as rr
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +175,28 @@ def test_wrappers_check_their_inputs(dev):
                    torch.zeros((pk.MAX_POINTS + 1, 2), device=dev),
                    torch.zeros((1, 3, 4), device=dev), chi2_th=5.991,
                    rounds=3, iters=6)
+
+
+# the last case: the sharded BA's payload at K = 16, La = 2048
+@pytest.mark.parametrize("axis,dp,mp,R", [
+    ("dp", 8, 1, 64), ("dp", 4, 2, 32), ("mp", 2, 4, 32),
+    ("dp", 4, 2, 4832)])
+def test_ring_reduce_kernel_matches_plain(dev, axis, dp, mp, R):
+    """Kernel D against its plain version, bit for bit, twice in a row (the
+    flags of one launch must not leak into the next); the singleton axis
+    launches nothing."""
+    ma = (("dp", dp), ("mp", mp))
+    g = torch.Generator(device=dev).manual_seed(R)
+    x = torch.randn((dp * mp, R, rr.LANES), generator=g, device=dev)
+    want = rr.ring_all_reduce_plain(x, axis, ma)
+    before = rr.launch_count
+    for _ in range(2):
+        got = rr.ring_all_reduce_flat(x, axis, ma)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert rr.launch_count == before + 2
+    single = (("dp", 1), ("mp", dp * mp))
+    assert rr.ring_all_reduce_flat(x, "dp", single) is x
+    assert rr.launch_count == before + 2
+    with pytest.raises(ValueError):
+        rr.ring_all_reduce_flat(x.double(), axis, ma)

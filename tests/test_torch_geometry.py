@@ -135,3 +135,31 @@ def test_symeig_small_and_triangulate():
     assert ok.sum() > 80
     # depth from a 4x4 null vector: relative 1e-4 of the depth
     _close(np.asarray(xj)[ok], xt[torch.from_numpy(ok.copy())], atol=1e-3, rtol=1e-4)
+
+
+def test_se3_adjoint_and_relative_pose_residual():
+    """Adj(T) on moderate, small-angle and near-pi poses; the pose-graph
+    residual log(meas^-1 Ti Tj^-1) on near-consistent edges (residuals
+    ~1e-2, the PGO regime) and on far ones (1e-4 near pi, as se3_log)."""
+    xj, xt = _both(_tangents(5))
+    Tj, Tt = jse3.se3_exp(xj), tse3.se3_exp(xt)
+    _close(jse3.se3_adjoint(Tj), tse3.se3_adjoint(Tt))
+    # the adjoint identity T exp(v) T^-1 = exp(Adj(T) v) holds in the port
+    v = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 0.1, (32, 6)).astype(np.float32))
+    lhs = tse3.se3_compose(tse3.se3_compose(Tt, tse3.se3_exp(v)),
+                           tse3.se3_inverse(Tt))
+    rhs = tse3.se3_exp(torch.einsum("nab,nb->na", tse3.se3_adjoint(Tt), v))
+    torch.testing.assert_close(lhs, rhs, rtol=0, atol=1e-4)
+
+    rng = np.random.default_rng(7)
+    dj, dt = _both(rng.normal(0, 0.01, (32, 6)))
+    mj = jse3.se3_compose(Tj[:16], jse3.se3_inverse(Tj[16:]))
+    mt = tse3.se3_compose(Tt[:16], tse3.se3_inverse(Tt[16:]))
+    near_j = jse3.se3_compose(jse3.se3_exp(dj[:16]), mj)
+    near_t = tse3.se3_compose(tse3.se3_exp(dt[:16]), mt)
+    _close(jjac.relative_pose_residual(Tj[:16], Tj[16:], near_j),
+           tjac.relative_pose_residual(Tt[:16], Tt[16:], near_t), atol=2e-5)
+    _close(jjac.relative_pose_residual(Tj[:16], Tj[16:], Tj[8:24]),
+           tjac.relative_pose_residual(Tt[:16], Tt[16:], Tt[8:24]),
+           atol=1e-3)
