@@ -7,15 +7,17 @@ Phases, in order; any failure exits non-zero:
   1. environment: the card's name and power limit, and the build of every
      CUDA kernel of `stereovision_slam_torch/csrc/` (one nvcc per source, in
      parallel);
-  2. kernel A (LK level) against its plain PyTorch version at the main
-     path's shapes (n = 256 and 512, all 4 levels) on pyramids of the
-     rendered scene, with kernel, plain and bound times;
+  2. kernel A (pyramidal LK, one launch per call over every level)
+     against its plain PyTorch version at the main path's shapes (G = 1 and
+     2 groups of 256 points, 4 levels) on pyramids of the rendered scene:
+     each level from the kernel's own start, and the whole call; kernel,
+     plain and bound times per call;
   3. kernel B (multi-start LM pose solve) the same, at S = 3, F = 256, and
      over a stream axis at (B, S) = (4, 3);
   4. the slice: the 120-frame 188x620 circuit through `FusedVisualOdometry`
      on "cuda" with the bench settings, the bench's gates, keyframe ATE < 2%
      of the path, and the launch counters against the frame and keyframe
-     counts;
+     counts (kernel A once per LK call);
   5. the first frames again on "cpu" (the kernels' plain versions), held to
      the card's run;
   6. kernel C (windowed LK loop) and the window gather against their plain
@@ -34,9 +36,11 @@ Phases, in order; any failure exits non-zero:
      held to its plain version on its inputs, the poses to ground truth
      and to the same frames on the lanes LK;
   9. the first serving frames again on "cpu", held to the card's run;
- 10. kernel D (ring all-reduce) against its plain version, bit for bit, at
-     the reference test's three meshes and at the sharded BA's payload
-     (8 ranks x 2.5 MB), with kernel, plain, bound and torch.sum times;
+ 10. kernel D (all-reduce along a mesh axis, one pass) against its plain
+     version, bit for bit, at the reference test's three meshes and at the
+     sharded BA's payload (8 ranks x 2.5 MB); one call is one launch with
+     no memset and no device->host read; warm and cold (L2 flushed) times,
+     plain, bound and torch.sum times;
  11. the distributed BA (`build_sharded_ba`, mesh (dp 4, mp 2), 6 LM
      iterations, compaction 2048) on the slice's final window, the dp
      reduction by a sum and by kernel D (6 launches, each held to its plain
@@ -151,6 +155,115 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Host time per call of fn() back to back, without waiting for the
+    device (the wrapper's own time, as long as the queue does not fill)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of fn() back to back, the device's work alone:
+    a sleep kernel holds the stream until all reps calls are queued, so the
+    host's time per call does not show."""
+    import torch
+    ahead = host_ms(fn, reps) * reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(3 * ahead * 2e6))   # cycles; clocks <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int) -> float:
+    """Device time of fn() with a cold L2: before each timed call 128 MB
+    are written and another 128 MB read (so the 50 MB L2 holds clean lines
+    of neither fn's inputs nor its outputs), then a sleep kernel holds the
+    stream while fn() is queued; CUDA events around fn() only."""
+    import torch
+    wipe = torch.empty(2, 32 << 20, dtype=torch.float32, device="cuda")
+    ahead = host_ms(fn, 3)
+    total = 0.0
+    for _ in range(reps):
+        wipe[0].fill_(1.0)
+        wipe[1].sum()
+        torch.cuda._sleep(int(3 * ahead * 2e6))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def one_launch(fn, kernel: str, module, reps: int = 5) -> None:
+    """Gate that each call of fn() launches `kernel` once and does nothing
+    else on the device: the wrapper's launch counter (`module.launch_count`)
+    moves by one per call; the only PyTorch operators it reaches allocate
+    or make views (a TorchDispatchMode sees every one: no fill, memset, copy
+    or read back); torch's sync debug mode raises on any operation that
+    waits for the device. torch.profiler's count of the device work of
+    `reps` calls is printed, and gated where it recorded any."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = {}
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops[str(func)] = func
+            return func(*args, **(kwargs or {}))
+
+    def moves_no_data(func) -> bool:
+        # an allocation, or a view (an input aliased, not written)
+        return (func.overloadpacket.__name__ in
+                ("empty", "empty_like", "empty_strided")
+                or any(a.alias_info is not None and not a.alias_info.is_write
+                       for a in func._schema.arguments))
+
+    fn()
+    torch.cuda.synchronize()
+    before = module.launch_count
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with Ops():
+                for _ in range(reps):
+                    fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    launched = module.launch_count - before
+    work = {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+    other = sorted(op for op, func in ops.items() if not moves_no_data(func))
+    print(f"{reps} calls of {kernel}: {launched} launches, operators "
+          f"{sorted(ops)}, no synchronising operation; the profiler's "
+          f"device work {work}")
+    check(launched == reps, f"{reps} calls of {kernel} launched it "
+          f"{launched} times")
+    check(not other, f"a call of {kernel} reaches operators {other}")
+    check(not work or (len(work) == 1 and kernel in next(iter(work))
+                       and sum(work.values()) == reps),
+          f"{reps} calls of {kernel} ran {work} on the device")
+
+
 def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -158,8 +271,12 @@ def bound_ms(nbytes: float, flops: float):
 
 
 def check_lk(rendered, dev):
-    """Kernel A against its plain version on every level launch of one
-    frame-to-frame track (G=1) and one batched track (G=2)."""
+    """Kernel A (`lk_pyramid`, every level of one LK call in one launch)
+    against its plain version on one frame-to-frame call (G = 1) and one
+    batched call (G = 2): each level's rows against `lk_level_plain` fed the
+    meta rebuilt from the kernel's own rows at the level above
+    (`replay_levels`), and the whole call's positions and status against
+    the plain level loop. Times per call, the plain time and the bound."""
     import torch
     from stereovision_slam_torch.ops import gftt, image as imops, lk_lanes
 
@@ -168,62 +285,74 @@ def check_lk(rendered, dev):
               for i in (0, 1))
     R1 = imops.build_pyramid(torch.as_tensor(rights[1], device=dev), 4)
     pts, valid, _ = gftt.detect(L0[0], max_corners=256, min_distance=20)
-    records = []
-
-    def compare(prev, cur, meta, **kw):
-        k = lk_lanes.lk_level(prev, cur, meta, **kw)
-        p = lk_lanes.lk_level_plain(prev, cur, meta, **kw)
-        torch.cuda.synchronize()
-        flags_eq = (k[:, 2:5] == p[:, 2:5]).all(dim=1)
-        err = (k[:, :2] - p[:, :2]).abs().amax(dim=1)
-        err = err[flags_eq & torch.isfinite(err)]
-        records.append(dict(args=(prev, cur, meta), kw=kw,
-                            n=int(meta.shape[0]), out=p,
-                            agree=float(flags_eq.float().mean()),
-                            err=float(err.max()) if err.numel() else 0.0))
-        return p
-
-    uv_a, st_a = lk_lanes.track_grouped_lanes(
-        [lv[None] for lv in L0], [lv[None] for lv in L1], pts[None],
-        pts[None], valid[None], max_iters=12, level_fn=compare)
+    kw = dict(max_iters=12)
+    g1 = ([lv[None] for lv in L0], [lv[None] for lv in L1], pts[None],
+          pts[None], valid[None])
+    uv_a, st_a, _ = lk_lanes.lk_pyramid(*g1, **kw)
     guess_r = uv_a[0] - torch.tensor([12.0, 0.0], device=dev)
-    lk_lanes.track_grouped_lanes(
-        [torch.stack([a, b]) for a, b in zip(L0, L1)],
-        [torch.stack([a, b]) for a, b in zip(L1, R1)],
-        torch.stack([pts, uv_a[0]]), torch.stack([uv_a[0], guess_r]),
-        torch.stack([valid, valid & st_a[0]]), max_iters=12,
-        level_fn=compare)
-    for r in records:
-        print(f"kernel A n={r['n']} flags agree {r['agree']:.4f} "
-              f"max pos err {r['err']:.3e} px")
-        check(r["agree"] >= LK_FLAG_AGREE and r["err"] <= LK_POS_TOL,
-              f"kernel A disagrees with its plain version: {r['agree']}, "
-              f"{r['err']}")
-    # times of every level launch; the table row is the largest one
-    # (level 0 of the G=2 batched call)
-    per_level = []
-    for r in records:
-        fn = lambda r=r: lk_lanes.lk_level(*r["args"], **r["kw"])
-        per_level.append(cuda_ms(fn, 50))
-    print("kernel A per-launch ms (G=1 levels 3..0, G=2 levels 3..0): "
-          + " ".join(f"{t:.4f}" for t in per_level))
-    big = records[-1]
-    prev, cur, meta = big["args"]
-    plain_ms = cuda_ms(lambda: lk_lanes.lk_level_plain(*big["args"],
-                                                       **big["kw"]), 5)
-    iters = float(big["out"][:, 5].sum())
-    n = big["n"]
-    win = big["kw"]["win"]
-    flops = n * win * win * 95.0 + iters * win * win * 12.0
-    nbytes = 4 * (prev.numel() + cur.numel() + meta.numel()
-                  + n * lk_lanes.OUT_COLS)
-    b, by = bound_ms(nbytes, flops)
-    return dict(name="lk_level", route="cuda",
-                source="stereovision_slam_torch/csrc/lk_level.cu",
+    g2 = ([torch.stack([a, b]) for a, b in zip(L0, L1)],
+          [torch.stack([a, b]) for a, b in zip(L1, R1)],
+          torch.stack([pts, uv_a[0]]), torch.stack([uv_a[0], guess_r]),
+          torch.stack([valid, valid & st_a[0]]))
+    err, rows_by_call = 0.0, {}
+    for label, args in (("G=1", g1), ("G=2", g2)):
+        uv, st, rows = lk_lanes.lk_pyramid(*args, **kw)
+        replay = lk_lanes.replay_levels(*args, rows, **kw)
+        uv_p, st_p = lk_lanes.track_grouped_lanes(
+            *args, level_fn=lk_lanes.lk_level_plain, **kw)
+        torch.cuda.synchronize()
+        rows_by_call[label] = (args, rows)
+        for level in range(len(rows) - 1, -1, -1):
+            k, p = rows[level], replay[level]
+            flags_eq = (k[:, 2:5] == p[:, 2:5]).all(dim=1)
+            e = (k[:, :2] - p[:, :2]).abs().amax(dim=1)
+            e = e[flags_eq & torch.isfinite(e)]
+            agree = float(flags_eq.float().mean())
+            e = float(e.max()) if e.numel() else 0.0
+            err = max(err, e)
+            print(f"kernel A {label} level {level} (n={k.shape[0]}): flags "
+                  f"agree {agree:.4f}, max pos err {e:.3e} px")
+            check(agree >= LK_FLAG_AGREE and e <= LK_POS_TOL,
+                  f"kernel A {label} level {level} disagrees with its plain "
+                  f"version: {agree}, {e}")
+        agree = float((st == st_p).float().mean())
+        both = st & st_p
+        e = float((uv - uv_p).abs()[both].max()) if bool(both.any()) else 0.0
+        err = max(err, e)
+        print(f"kernel A {label} whole call: status agrees on {agree:.4f} of "
+              f"the points ({int(st.sum())} / {int(st_p.sum())} tracked), "
+              f"max pos err {e:.3e} px where both track")
+        check(agree >= LK_FLAG_AGREE and e <= LK_POS_TOL,
+              f"kernel A's {label} call disagrees with the plain level "
+              f"loop: {agree}, {e}")
+    # one launch per call; the table row is the G = 2 call
+    win = 11
+    for label, (args, rows) in rows_by_call.items():
+        call = lambda: lk_lanes.lk_pyramid(*args, **kw)
+        if label == "G=2":
+            one_launch(call, "lk_pyramid", lk_lanes)
+        ms, dev_ms, wrap_ms = cuda_ms(call, 50), device_ms(call, 50), \
+            host_ms(call, 50)
+        plain_ms = cuda_ms(lambda: lk_lanes.lk_pyramid_plain(*args, **kw), 3)
+        L, n = rows.shape[:2]
+        # every level's two images read once; points, initial points and
+        # masks in; positions, status and the per-level rows out
+        nbytes = (4 * sum(t.numel() for t in args[0] + args[1])
+                  + n * (4 * 2 + 4 * 2 + 1) + n * (4 * 2 + 1)
+                  + 4 * rows.numel())
+        # per point and level: template and gradients (~95 per pixel), and
+        # per iteration 12 per pixel, as many iterations as this run took
+        flops = (L * n * 95.0 + float(rows[:, :, 5].sum()) * 12.0) * win * win
+        b, by = bound_ms(nbytes, flops)
+        print(f"kernel A {label} (n={n}, {L} levels): {ms:.4f} ms per call "
+              f"back to back (one launch; CUDA events), the kernel alone "
+              f"{dev_ms:.4f} ms, host time {wrap_ms:.4f} ms per call; plain "
+              f"{plain_ms:.3f} ms, bound {b:.6f} ms ({by})")
+    return dict(name="lk_pyramid", route="cuda",
+                source="stereovision_slam_torch/csrc/lk_pyramid.cu",
                 replaces="stereovision_slam_tpu/ops/lk_lanes.py:112",
-                max_abs_err=max(r["err"] for r in records),
-                ms=per_level[-1], plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                library_ms=None)
+                max_abs_err=err, ms=ms, device_ms=dev_ms, host_ms=wrap_ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
 
 
 def pose_problem(dev, seed: int = 0):
@@ -696,9 +825,11 @@ def run_serving(streams, rig, counters, dev, cfg, label: str,
         check(met or not gate_ate, f"stream {b}: ATE {ate:.3f} m")
         check(len(out) == steps and bool(np.all(n_in > 10)),
               f"stream {b}: tracking collapsed: {n_in.tolist()}")
-    want_a = 8 * steps + 4 * (SERVE_B + inserted)
-    check(launches["lk_level"] == want_a,
-          f"kernel A launched {launches['lk_level']} times, not {want_a}")
+    # one launch per LK call: two per step, one per stream's stereo
+    # initialization and one per keyframe step
+    want_a = 2 * steps + SERVE_B + inserted
+    check(launches["lk_pyramid"] == want_a,
+          f"kernel A launched {launches['lk_pyramid']} times, not {want_a}")
     check(launches["pose_lm"] == steps,
           f"kernel B launched {launches['pose_lm']} times, not {steps}")
     check(launches["lk_iterate"] == 0 and launches["gather_windows"] == 0,
@@ -858,22 +989,34 @@ def check_ring(dev):
         check(rel <= RING_F64_TOL, f"kernel D is {rel} off the float64 sum")
     axis, dp, mp, x = cases[-1]
     ma = (("dp", dp), ("mp", mp))
-    ms = cuda_ms(lambda: rr.ring_all_reduce_flat(x, axis, ma, check=False),
-                 50)
-    rr.check_errors(x.device)
+    call = lambda: rr.ring_all_reduce_flat(x, axis, ma)
+    lib = lambda: x.view(dp, mp, R, rr.LANES).sum(0)
+    one_launch(call, "ring_reduce", rr)
+    ms = cuda_ms(call, 50)
+    dev_ms, cold, wrap_ms = device_ms(call, 50), cuda_ms_cold(call, 20), \
+        host_ms(call, 50)
     plain_ms = cuda_ms(lambda: rr.ring_all_reduce_plain(x, axis, ma), 5)
-    lib_ms = cuda_ms(lambda: x.view(dp, mp, R, rr.LANES).sum(0), 50)
+    lib_ms, lib_dev, lib_cold = cuda_ms(lib, 50), device_ms(lib, 50), \
+        cuda_ms_cold(lib, 20)
     # each input read once, each output written once; n - 1 adds for each
     # element of each ring's sum
     b, by = bound_ms(2 * 4 * x.numel(), x.numel() * (dp - 1) / dp)
-    print(f"kernel D at the sharded BA payload (8 ranks x {R} x 128): "
-          f"{ms:.4f} ms per launch, plain {plain_ms:.3f} ms, torch.sum over "
-          f"the ring axis {lib_ms:.4f} ms, bound {b:.6f} ms ({by})")
+    print(f"kernel D at the sharded BA payload (8 ranks x {R} x 128, "
+          f"{4 * x.numel() / 1e6:.1f} MB in, as much out): {ms:.4f} ms per "
+          f"call back to back (CUDA events; {wrap_ms:.4f} ms of host time "
+          f"per call); the kernel alone {dev_ms:.4f} ms warm (input and "
+          f"output fit in the 50 MB L2, so it can read under the HBM bound), "
+          f"{cold:.4f} ms cold (L2 flushed); plain {plain_ms:.3f} ms; "
+          f"torch.sum over the ring axis {lib_ms:.4f} ms back to back, "
+          f"{lib_dev:.4f} ms warm alone, {lib_cold:.4f} ms cold; bound "
+          f"{b:.6f} ms ({by})")
     return dict(name="ring_all_reduce", route="cuda",
                 source="stereovision_slam_torch/csrc/ring_reduce.cu",
                 replaces="stereovision_slam_tpu/parallel/ring_reduce.py:39",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=lib_ms)
+                max_abs_err=err, ms=ms, device_ms=dev_ms, cold_ms=cold,
+                host_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=lib_ms, library_device_ms=lib_dev,
+                library_cold_ms=lib_cold)
 
 
 @contextlib.contextmanager
@@ -1170,7 +1313,7 @@ def main() -> int:
     check_pose_streams(dev)
 
     # 4. the slice on the card, counters read around this run only
-    counters = {"lk_level": lk_lanes, "pose_lm": pose_kernel,
+    counters = {"lk_pyramid": lk_lanes, "pose_lm": pose_kernel,
                 "lk_iterate": lk_iterate, "gather_windows": gather,
                 "ring_all_reduce": ring_reduce}
     T = len(lefts)
@@ -1202,9 +1345,9 @@ def main() -> int:
           f"ATE {ate:.3f} m over {dist:.1f} m")
     tracked = T - 1
     kf_steps = sum(inserted)
-    want_lk = 4 * (2 * tracked + kf_steps)
-    check(launches["lk_level"] == want_lk,
-          f"kernel A launched {launches['lk_level']} times, not {want_lk}")
+    want_lk = 2 * tracked + kf_steps     # one launch per LK call
+    check(launches["lk_pyramid"] == want_lk,
+          f"kernel A launched {launches['lk_pyramid']} times, not {want_lk}")
     check(launches["pose_lm"] == tracked,
           f"kernel B launched {launches['pose_lm']} times, not {tracked}")
     check(launches["lk_iterate"] == 0 and launches["gather_windows"] == 0,
@@ -1267,7 +1410,7 @@ def main() -> int:
     # launches: kernels A and B on the slice (the main path), kernel C and
     # the gather on the serving run with the per-level LK, kernel D on the
     # sharded BA; every path's counts beside them
-    main_path = {"lk_level": "slice", "pose_lm": "slice",
+    main_path = {"lk_pyramid": "slice", "pose_lm": "slice",
                  "lk_iterate": "serving_pallas",
                  "gather_windows": "serving_pallas",
                  "ring_all_reduce": "sharded_ba"}
@@ -1275,12 +1418,12 @@ def main() -> int:
         path = main_path[k["name"]]
         k["launches"] = by_path[path][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
-    print(json.dumps({"kernels": [
-        {k: kern[k] for k in ("name", "route", "source", "replaces",
-                              "launches", "max_abs_err", "ms", "plain_ms",
-                              "bound_ms", "bound_by", "library_ms",
-                              "launches_by_path")}
-        for kern in kernels]}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "device_ms", "cold_ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "library_cold_ms",
+            "launches_by_path")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
+                                  for kern in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@ stays unchanged). Same layout and names, so each module has a counterpart:
 
   * `geometry/` - SE(3), pinhole cameras, Jacobians, Jacobi eigensolver,
     DLT triangulation;
-  * `ops/` - image pyramids, GFTT, pyramidal LK (kernel A, `csrc/lk_level.cu`)
+  * `ops/` - image pyramids, GFTT, pyramidal LK (kernel A, `csrc/lk_pyramid.cu`)
     and the fused multi-start pose solve (kernel B, `csrc/pose_lm.cu`);
   * `slam/` - config, map state, frontend, sliding-window Schur BA, the
     fused per-frame step (`FusedVisualOdometry`), multi-stream serving and

@@ -1,11 +1,14 @@
-"""Kernel A: one pyramid level of LK for many points, and the loop over
-the levels (counterpart of `ops/lk_lanes.py`).
+"""Kernel A: pyramidal LK for many points, every level in one launch
+(counterpart of `ops/lk_lanes.py`).
 
-`lk_level` launches the CUDA kernel of `csrc/lk_level.cu` on a CUDA tensor
-and runs `lk_level_plain`, its plain PyTorch version, on a CPU tensor. The
-per-level prep (`_prep_level`: template corner, search-window clip,
-bilinear fractions) and the status logic of `track_grouped_lanes` are
-shared Python, so the CPU tests reach them.
+`lk_pyramid` launches the CUDA kernel of `csrc/lk_pyramid.cu` on CUDA
+tensors and runs `lk_pyramid_plain`, its plain PyTorch version, on CPU
+tensors. The plain version is the level loop of the reference: per level,
+`_prep_level` (template corner, search-window clip, bilinear fractions),
+`lk_level_plain` (one level for every point), then the guess for the next
+level; the status at level 0. The kernel does all of that in one launch.
+`level_table` (pad and window shapes per level) is shared Python, so the
+CPU tests reach it.
 
 Semantics held from the reference:
   * template window corner max(floor(tl) - 1, 0), in-window sample start 1,
@@ -18,7 +21,10 @@ Semantics held from the reference:
 
 from __future__ import annotations
 
+import array
 import ctypes
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,14 +35,28 @@ from stereovision_slam_torch.ops.image import floor_int
 # Per-level margins (pixels each side a point may travel within one level).
 _MARGINS_X = (10, 14, 18, 26)
 _MARGINS_Y = (10, 10, 12, 14)
-META_COLS = 9    # [x, y, cx, cy, frozen0, tfx, tfy, twx, twy]
 OUT_COLS = 6     # [x, y, frozen, left_win, solvable, iterations]
+MAX_LEVELS = 8   # csrc/lk_pyramid.cu kMaxLevels
+MAX_WIN = 15     # csrc/lk_pyramid.cu kMaxWin
 
 launch_count = 0
-# lk_level_launch(prev, cur, meta, out, n, N, H, W, pad, Py, Px, win,
-#                 max_iters, eps2, min_eig_thr, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+# lk_pyramid_launch(prev_ptrs, cur_ptrs, dims, levels, pts, init, masks, uv,
+#                   status, rows, n, N, pad, win, max_iters, init_scale,
+#                   eps2, min_eig_thr, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+             + [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+
+
+class LevelShape(NamedTuple):
+    """One level of the pyramid: its size, padded size, search window and
+    whether the padded level holds the window (`levels_ok`'s test)."""
+    H: int
+    W: int
+    Hp: int
+    Wp: int
+    Py: int
+    Px: int
+    fits: bool
 
 
 def _round_up(v: int, m: int) -> int:
@@ -65,11 +85,36 @@ def levels_ok(pyramid, win_size: int) -> bool:
     return True
 
 
+def level_table(pyramid, win_size: int) -> tuple[int, tuple[LevelShape]]:
+    """(pad, one `LevelShape` per level, level 0 finest) of a pyramid of
+    (..., H, W) levels: the padded sizes, the search windows of
+    `level_window_shape`, and whether each level fits them."""
+    return _table(tuple(tuple(lv.shape[-2:]) for lv in pyramid), win_size)[:2]
+
+
+@lru_cache(maxsize=64)
+def _table(sizes: tuple, win_size: int):
+    """`level_table` of levels of sizes ((H, W), ...), and its rows (H, W,
+    Py, Px) as the C int array the kernel's level table is built from."""
+    pad = win_size // 2 + 2
+    s8 = _round_up(win_size + 1, 8)
+    shapes = []
+    for level, (H, W) in enumerate(sizes):
+        Hp, Wp = H + 2 * pad, W + 2 * pad
+        Py, Px = level_window_shape(level, Hp, Wp, win_size)
+        shapes.append(LevelShape(H, W, Hp, Wp, Py, Px,
+                                 (Hp // 8) * 8 >= s8 and (Wp // 8) * 8 >= s8))
+    dims = array.array("i", [v for sh in shapes
+                             for v in (sh.H, sh.W, sh.Py, sh.Px)])
+    return pad, tuple(shapes), dims
+
+
 def _prep_level(prev_pts, guesses, frozen0, Hp: int, Wp: int, win: int,
                 Py: int, Px: int):
     """Per-point meta rows for one level (padded coordinates in and out).
 
-    Returns (meta (n, 9) float32, tmpl_ok (n,) bool)."""
+    Returns (meta (n, 9) float32 [x, y, cx, cy, frozen0, tfx, tfy, twx,
+    twy], tmpl_ok (n,) bool)."""
     S = win + 1
     half = (win - 1) / 2.0
     tl = prev_pts - half
@@ -90,10 +135,34 @@ def _prep_level(prev_pts, guesses, frozen0, Hp: int, Wp: int, win: int,
     return meta, tmpl_ok
 
 
+def level_meta(pts, guesses, masks, pad: int, shape: LevelShape, level: int,
+               win: int):
+    """`_prep_level` of one level: the template points pts (G, N, 2) of
+    level 0 scaled to the level, the guesses (G, N, 2) in the level's
+    unpadded coordinates, masked slots frozen. Returns (meta (n, 9),
+    tmpl_ok (n,))."""
+    n = masks.numel()
+    s = 0.5 ** level
+    return _prep_level((pts * s + pad).reshape(n, 2),
+                       (guesses + pad).reshape(n, 2),
+                       (~masks).to(torch.float32).reshape(n), shape.Hp,
+                       shape.Wp, win, shape.Py, shape.Px)
+
+
+def next_guesses(rows, pad: int, level: int):
+    """The guesses (n, 2) that a level's rows (n, 6) hand on, in the next
+    finer level's unpadded coordinates (at level 0: the result)."""
+    guesses = rows[:, :2] - pad
+    return guesses * 2.0 if level > 0 else guesses
+
+
 def lk_level_plain(prev_img, cur_img, meta, *, N: int, pad: int, Py: int,
                    Px: int, win: int, max_iters: int, eps: float,
                    min_eig_threshold: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: same inputs, same (n, 6) out."""
+    """One level for n = G * N points, the step of `lk_pyramid_plain`:
+    prev_img / cur_img (G, H, W) float32 unpadded level images, meta (n, 9)
+    from `_prep_level`. Returns (n, 6) [x, y, frozen, left_win, solvable,
+    iterations]."""
     G, H, W = prev_img.shape
     Hp, Wp = H + 2 * pad, W + 2 * pad
     dev = prev_img.device
@@ -188,81 +257,155 @@ def lk_level_plain(prev_img, cur_img, meta, *, N: int, pad: int, Py: int,
                         solvable.float(), iters], dim=1)
 
 
-def lk_level(prev_img, cur_img, meta, *, N: int, pad: int, Py: int, Px: int,
-             win: int, max_iters: int, eps: float,
-             min_eig_threshold: float) -> torch.Tensor:
-    """One level for n = G * N points: prev_img / cur_img (G, H, W) float32
-    unpadded level images, meta (n, 9) from `_prep_level`. Returns (n, 6)
-    [x, y, frozen, left_win, solvable, iterations]."""
-    kw = dict(N=N, pad=pad, Py=Py, Px=Px, win=win, max_iters=max_iters,
-              eps=eps, min_eig_threshold=min_eig_threshold)
-    if prev_img.device.type == "cpu":
-        return lk_level_plain(prev_img, cur_img, meta, **kw)
-    if prev_img.device.type != "cuda":
-        raise ValueError(f"lk_level: unsupported device {prev_img.device}")
-    G, H, W = prev_img.shape
-    n = meta.shape[0]
-    for t, name in ((prev_img, "prev_img"), (cur_img, "cur_img"),
-                    (meta, "meta")):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != prev_img.device:
-            raise ValueError(f"lk_level: {name} must be contiguous float32 "
-                             f"on {prev_img.device}")
-    if cur_img.shape != prev_img.shape or meta.shape != (n, META_COLS):
-        raise ValueError("lk_level: shape mismatch")
-    if n != G * N:
-        raise ValueError(f"lk_level: {n} points for {G} groups of {N}")
-    out = torch.empty((n, OUT_COLS), dtype=torch.float32, device=meta.device)
-    fn = _cuda.function("lk_level", "lk_level_launch", _ARGTYPES)
+def _levels_loop(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks, *,
+                 win_size: int, max_iters: int, eps: float,
+                 min_eig_threshold: float, level_fn, given_rows=None):
+    """The reference's loop over the levels, coarse to fine, one `level_fn`
+    call (with `lk_level_plain`'s signature) per level over all G * N
+    points. With `given_rows`, (L, n, 6), each level starts from those
+    rows at the level above instead of its own. Returns
+    (cur_pts (G, N, 2), status (G, N), rows (L, n, 6))."""
+    num_levels = len(tmpl_pyramids)
+    G, N, _ = pts.shape
+    pad, shapes = level_table(tmpl_pyramids, win_size)
+    half = (win_size - 1) / 2.0
+    guesses = initial_pts * (0.5 ** (num_levels - 1))
+    rows = [None] * num_levels
+    for level in range(num_levels - 1, -1, -1):
+        sh = shapes[level]
+        meta, tmpl_ok = level_meta(pts, guesses, masks, pad, sh, level,
+                                   win_size)
+        out = level_fn(tmpl_pyramids[level].contiguous(),
+                       tgt_pyramids[level].contiguous(), meta, N=N, pad=pad,
+                       Py=sh.Py, Px=sh.Px, win=win_size, max_iters=max_iters,
+                       eps=eps, min_eig_threshold=min_eig_threshold)
+        rows[level] = out
+        handed = out if given_rows is None else given_rows[level]
+        guesses = next_guesses(handed, pad, level).reshape(G, N, 2)
+    sh = shapes[0]
+    out = rows[0]
+    tlx, tly = out[:, 0] - half, out[:, 1] - half
+    final_inb = ((tlx >= 0.0) & (tly >= 0.0)
+                 & (tlx + win_size < sh.Wp) & (tly + win_size < sh.Hp))
+    status = (tmpl_ok & (out[:, 4] > 0.5) & final_inb
+              & ~(out[:, 3] > 0.5)).reshape(G, N)
+    inb = ((guesses[..., 0] >= 0.0) & (guesses[..., 0] < sh.W)
+           & (guesses[..., 1] >= 0.0) & (guesses[..., 1] < sh.H))
+    return guesses, status & inb, torch.stack(rows)
+
+
+def lk_pyramid_plain(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks, *,
+                     win_size: int = 11, max_iters: int = 30,
+                     eps: float = 0.01, min_eig_threshold: float = 1e-4):
+    """Plain PyTorch version of the kernel: the level loop over
+    `lk_level_plain`. Same inputs and outputs as `lk_pyramid`."""
+    return _levels_loop(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks,
+                        win_size=win_size, max_iters=max_iters, eps=eps,
+                        min_eig_threshold=min_eig_threshold,
+                        level_fn=lk_level_plain)
+
+
+def lk_pyramid(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks, *,
+               win_size: int = 11, max_iters: int = 30, eps: float = 0.01,
+               min_eig_threshold: float = 1e-4):
+    """Track G point groups, each with its own image pair, through the
+    whole pyramid: one launch of kernel A on CUDA tensors.
+
+    tmpl_pyramids / tgt_pyramids: lists (level 0 finest) of (G, H, W)
+    float32; pts / initial_pts (G, N, 2) float32; masks (G, N) bool. Every
+    level must hold its search window (`levels_ok`). Returns
+    (cur_pts (G, N, 2), status (G, N), rows (L, G * N, 6)): each level's
+    [x, y, frozen, left_win, solvable, iterations], x and y in the level's
+    padded coordinates."""
+    kw = dict(win_size=win_size, max_iters=max_iters, eps=eps,
+              min_eig_threshold=min_eig_threshold)
+    dev = pts.device
+    if dev.type == "cpu":
+        return lk_pyramid_plain(tmpl_pyramids, tgt_pyramids, pts,
+                                initial_pts, masks, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"lk_pyramid: unsupported device {dev}")
+    G, N, _ = pts.shape
+    n = G * N
+    L = len(tmpl_pyramids)
+    if not 1 <= L <= MAX_LEVELS or len(tgt_pyramids) != L:
+        raise ValueError(f"lk_pyramid: {L} template and {len(tgt_pyramids)} "
+                         f"target levels, 1 to {MAX_LEVELS} each")
+    if not 1 <= win_size <= MAX_WIN:
+        raise ValueError(f"lk_pyramid: win_size {win_size} not in "
+                         f"1..{MAX_WIN}")
+    levels = [t.contiguous() for pyr in (tmpl_pyramids, tgt_pyramids)
+              for t in pyr]
+    for t, name in [(pts, "pts"), (initial_pts, "initial_pts")] + [
+            (lv, "a pyramid level") for lv in levels]:
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"lk_pyramid: {name} must be float32 on {dev}")
+    if initial_pts.shape != pts.shape or pts.shape[-1] != 2 \
+            or masks.shape != (G, N):
+        raise ValueError("lk_pyramid: pts, initial_pts and masks must be "
+                         "(G, N, 2), (G, N, 2) and (G, N)")
+    if masks.dtype != torch.bool or masks.device != dev:
+        raise ValueError(f"lk_pyramid: masks must be bool on {dev}")
+    for a, b in zip(levels[:L], levels[L:]):
+        if a.dim() != 3 or a.shape != b.shape or a.shape[0] != G:
+            raise ValueError("lk_pyramid: every level must be (G, H, W) in "
+                             "both pyramids")
+    pad, shapes, dims = _table(tuple(tuple(t.shape[-2:]) for t in levels[:L]),
+                               win_size)
+    if not all(sh.fits for sh in shapes):
+        raise ValueError("lk_pyramid: a level is smaller than its search "
+                         "window (see levels_ok)")
+    pts_c, init_c = pts.contiguous(), initial_pts.contiguous()
+    masks_c = masks.contiguous()
+    uv = torch.empty((G, N, 2), dtype=torch.float32, device=dev)
+    status = torch.empty((G, N), dtype=torch.bool, device=dev)
+    rows = torch.empty((L, n, OUT_COLS), dtype=torch.float32, device=dev)
+    ptrs = array.array("Q", [t.data_ptr() for t in levels])   # prev, cur
+    fn = _cuda.function("lk_pyramid", "lk_pyramid_launch", _ARGTYPES)
     global launch_count
     launch_count += 1
-    code = fn(prev_img.data_ptr(), cur_img.data_ptr(), meta.data_ptr(),
-              out.data_ptr(), n, N, H, W, pad, Py, Px, win, max_iters,
-              float(eps * eps), float(min_eig_threshold),
-              _cuda.stream_handle(prev_img))
-    _cuda.check(code, "lk_level")
-    return out
+    base = ptrs.buffer_info()[0]
+    code = fn(base, base + 8 * L, dims.buffer_info()[0], L,
+              pts_c.data_ptr(), init_c.data_ptr(), masks_c.data_ptr(),
+              uv.data_ptr(), status.data_ptr(), rows.data_ptr(), n, N, pad,
+              win_size, max_iters, 0.5 ** (L - 1), float(eps * eps),
+              float(min_eig_threshold), _cuda.stream_handle(pts))
+    _cuda.check(code, "lk_pyramid")
+    return uv, status, rows
+
+
+def replay_levels(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks, rows,
+                  *, win_size: int = 11, max_iters: int = 30,
+                  eps: float = 0.01, min_eig_threshold: float = 1e-4):
+    """Each level of `lk_level_plain`, fed the meta that `_prep_level`
+    builds from `rows` (an (L, n, 6) result of `lk_pyramid`) at the level
+    above, or from the initial guesses at the top: what the plain version
+    makes of each level from the kernel's own start. Returns (L, n, 6)."""
+    return _levels_loop(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks,
+                        win_size=win_size, max_iters=max_iters, eps=eps,
+                        min_eig_threshold=min_eig_threshold,
+                        level_fn=lk_level_plain, given_rows=rows)[2]
 
 
 def track_grouped_lanes(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks,
                         *, win_size: int = 11, max_iters: int = 30,
                         eps: float = 0.01, min_eig_threshold: float = 1e-4,
-                        level_fn=lk_level):
+                        level_fn=None):
     """Track G point groups, each with its own image pair, through the
-    pyramid: one `level_fn` call per level over all G * N points.
+    pyramid: `lk_pyramid` (one launch of kernel A on the card), or, given
+    a `level_fn` with `lk_level_plain`'s signature, the level loop calling
+    it once per level over all G * N points.
 
     tmpl_pyramids / tgt_pyramids: lists (level 0 finest) of (G, H, W);
     pts / initial_pts (G, N, 2); masks (G, N) bool. Returns
     (cur_pts (G, N, 2), status (G, N))."""
-    num_levels = len(tmpl_pyramids)
-    G, N, _ = pts.shape
-    n = G * N
-    guesses = initial_pts * (0.5 ** (num_levels - 1))
-    pad = win_size // 2 + 2
-    frozen0 = (~masks).to(torch.float32).reshape(n)
-    half = (win_size - 1) / 2.0
-    status_fine = None
-    for level in range(num_levels - 1, -1, -1):
-        s = 0.5 ** level
-        H, W = tmpl_pyramids[level].shape[-2:]
-        Hp, Wp = H + 2 * pad, W + 2 * pad
-        Py, Px = level_window_shape(level, Hp, Wp, win_size)
-        meta, tmpl_ok = _prep_level(
-            (pts * s + pad).reshape(n, 2), (guesses + pad).reshape(n, 2),
-            frozen0, Hp, Wp, win_size, Py, Px)
-        out = level_fn(tmpl_pyramids[level].contiguous(),
-                       tgt_pyramids[level].contiguous(), meta, N=N, pad=pad,
-                       Py=Py, Px=Px, win=win_size, max_iters=max_iters,
-                       eps=eps, min_eig_threshold=min_eig_threshold)
-        guesses = out[:, :2].reshape(G, N, 2) - pad
-        if level == 0:
-            tlx, tly = out[:, 0] - half, out[:, 1] - half
-            final_inb = ((tlx >= 0.0) & (tly >= 0.0)
-                         & (tlx + win_size < Wp) & (tly + win_size < Hp))
-            status_fine = (tmpl_ok & (out[:, 4] > 0.5) & final_inb
-                           & ~(out[:, 3] > 0.5)).reshape(G, N)
-        else:
-            guesses = guesses * 2.0
-    H0, W0 = tgt_pyramids[0].shape[-2:]
-    inb = ((guesses[..., 0] >= 0.0) & (guesses[..., 0] < W0)
-           & (guesses[..., 1] >= 0.0) & (guesses[..., 1] < H0))
-    return guesses, status_fine & inb
+    kw = dict(win_size=win_size, max_iters=max_iters, eps=eps,
+              min_eig_threshold=min_eig_threshold)
+    if level_fn is None:
+        uv, status, _ = lk_pyramid(tmpl_pyramids, tgt_pyramids, pts,
+                                   initial_pts, masks, **kw)
+    else:
+        uv, status, _ = _levels_loop(tmpl_pyramids, tgt_pyramids, pts,
+                                     initial_pts, masks, level_fn=level_fn,
+                                     **kw)
+    return uv, status

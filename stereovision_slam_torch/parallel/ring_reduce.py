@@ -1,4 +1,4 @@
-"""Kernel D: the ring all-reduce along one mesh axis (counterpart of
+"""Kernel D: the all-reduce along one mesh axis (counterpart of
 `parallel/ring_reduce.py`, whose `_ring_kernel` the CUDA kernel of
 `csrc/ring_reduce.cu` replaces).
 
@@ -6,16 +6,18 @@ The mesh's ranks are the leading axis of a tensor on one device
 (`parallel/mesh.py`). `ring_all_reduce_flat` all-reduces an
 (n_ranks, R, 128) float32 payload along `axis_name` (every ring of the mesh
 in one launch): the kernel on a CUDA tensor, `ring_all_reduce_plain` on a
-CPU tensor. The plain version repeats the kernel's schedule hop by hop with
-tensor ops over all ranks at once, so both add the same numbers in the same
-order and agree bit for bit; that order is the reference's, and not that of
-`x.sum(axis)`. `ring_psum` is the `psum` over a tuple, list or dict of
-tensors of shape (*mesh_shape, ...): one fused ring for the concatenated
-leaves, padded as the reference pads them.
+CPU tensor. Both compute chunk c of a ring (rows [c R / n, (c + 1) R / n))
+as the reference's reduce-scatter folds it: start from the rank at ring
+position c, then add the ranks at c + 1, c + 2, ... in turn. So they agree
+bit for bit with each other and with the reference; that order is not
+that of `x.sum(axis)`. `ring_psum` is the `psum` over a tuple, list or
+dict of tensors of shape (*mesh_shape, ...): one all-reduce of the
+concatenated leaves, padded as the reference pads them.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 import math
 
@@ -25,11 +27,10 @@ from stereovision_slam_torch.ops import _cuda
 
 LANES = 128
 launch_count = 0
-# ring_reduce_launch(x, out, mbox, flags, err, n_ranks, n, ring_stride,
-#                    chunk4, bpr, stream)
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_THREADS = 256
-_errors: dict[torch.device, torch.Tensor] = {}
+# ring_reduce_launch(x_ptrs, out_ptrs, n_ranks, n, ring_stride, chunk4,
+#                    stream)
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_MAX_RANKS = 64     # csrc/ring_reduce.cu kMaxRanks
 
 
 def _ring(axis_name: str, mesh_axes) -> tuple[int, int, list[int], int]:
@@ -52,59 +53,33 @@ def _check_payload(x: torch.Tensor, n: int, sizes: list[int]) -> None:
 
 def ring_all_reduce_plain(x: torch.Tensor, axis_name: str,
                           mesh_axes) -> torch.Tensor:
-    """Plain PyTorch version: the kernel's 2(n - 1) hops over all ranks."""
+    """Plain PyTorch version: the kernel's fold, over all rings and chunks
+    at once."""
     n, _, sizes, a = _ring(axis_name, mesh_axes)
     if n == 1:
         return x
     _check_payload(x, n, sizes)
     N, R, C = x.shape
-    Rc = R // n
     others = sizes[:a] + sizes[a + 1:]
-    # (ring position, other ranks, chunk, Rc, 128)
-    buf = x.reshape(*sizes, R, C).movedim(a, 0).reshape(n, -1, n, Rc, C)
-    buf = buf.clone()
-    me = torch.arange(n, device=x.device)
-    left = (me - 1) % n
-    for g in range(2 * (n - 1)):
-        if g < n - 1:
-            send, recv = (me - g) % n, (me - g - 1) % n
-        else:
-            s = g - (n - 1)
-            send, recv = (me + 1 - s) % n, (me - s) % n
-        incoming = buf[me, :, send][left]      # what the left neighbour sent
-        if g < n - 1:
-            buf[me, :, recv] = buf[me, :, recv] + incoming
-        else:
-            buf[me, :, recv] = incoming
-    return buf.reshape(n, *others, R, C).movedim(0, a).reshape(N, R, C)
+    # (ring position, other ranks, chunk, R / n, 128)
+    buf = x.reshape(*sizes, R, C).movedim(a, 0).reshape(n, -1, n, R // n, C)
+    c = torch.arange(n, device=x.device)
+    acc = buf[c, :, c]                       # (chunk, other ranks, R / n, 128)
+    for k in range(1, n):
+        acc = acc + buf[(c + k) % n, :, c]
+    per_rank = acc.movedim(0, 1)             # (other ranks, chunk, ...)
+    out = per_rank.expand(n, *per_rank.shape)
+    return out.reshape(n, *others, R, C).movedim(0, a).reshape(N, R, C)
 
 
-def _error_word(dev: torch.device) -> torch.Tensor:
-    err = _errors.get(dev)
-    if err is None:
-        err = _errors[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return err
-
-
-def check_errors(dev: torch.device) -> None:
-    """Raise if a launch on `dev` since the last check timed out in a spin
-    (reads the kernel's error word: one device->host copy)."""
-    err = _error_word(torch.device(dev))
-    code = int(err.item())
-    if code:
-        err.zero_()
-        what = {1: "a credit", 2: "a mailbox flag"}.get(code, str(code))
-        raise RuntimeError(f"ring all-reduce: timed out waiting for {what}")
-
-
-def ring_all_reduce_flat(x: torch.Tensor, axis_name: str, mesh_axes,
-                         check: bool = True) -> torch.Tensor:
+def ring_all_reduce_flat(x: torch.Tensor, axis_name: str,
+                         mesh_axes) -> torch.Tensor:
     """All-reduce the (n_ranks, R, 128) payload along `axis_name`; R must
-    divide by 8 * n. On a CUDA tensor one launch of kernel D; with `check`
-    the wrapper then reads the kernel's error word (`check_errors`)."""
+    divide by 8 * n. On a CUDA tensor one launch of kernel D, which reads
+    nothing back to the host."""
     n, stride, sizes, _ = _ring(axis_name, mesh_axes)
     if n == 1:
-        return x   # zero hops: nothing to send, and nothing to launch
+        return x   # a ring of one: nothing to add, and nothing to launch
     if x.device.type == "cpu":
         return ring_all_reduce_plain(x, axis_name, mesh_axes)
     if x.device.type != "cuda":
@@ -115,23 +90,20 @@ def ring_all_reduce_flat(x: torch.Tensor, axis_name: str, mesh_axes,
         raise ValueError("ring all-reduce: the payload must be contiguous, "
                          "16-byte aligned float32")
     N, R, _ = x.shape
-    chunk4 = R // n * LANES // 4
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    bpr = max(1, min(sms // N, -(-chunk4 // _THREADS)))
+    if N > _MAX_RANKS:
+        raise ValueError(f"ring all-reduce: {N} ranks, at most {_MAX_RANKS}")
     out = torch.empty_like(x)
-    mbox = torch.empty((N, 2, chunk4 * 4), dtype=torch.float32,
-                       device=x.device)
-    flags = torch.zeros(N * bpr * 3, dtype=torch.int32, device=x.device)
-    err = _error_word(x.device)
+    rank_bytes = R * LANES * x.element_size()
+    # the rank table: every rank's input, then every rank's output
+    ptrs = array.array("Q", [t.data_ptr() + r * rank_bytes
+                             for t in (x, out) for r in range(N)])
     fn = _cuda.function("ring_reduce", "ring_reduce_launch", _ARGTYPES)
     global launch_count
     launch_count += 1
-    code = fn(x.data_ptr(), out.data_ptr(), mbox.data_ptr(), flags.data_ptr(),
-              err.data_ptr(), N, n, stride, chunk4, bpr,
+    base = ptrs.buffer_info()[0]
+    code = fn(base, base + 8 * N, N, n, stride, R // n * LANES // 4,
               _cuda.stream_handle(x))
     _cuda.check(code, "ring_reduce")
-    if check:
-        check_errors(x.device)
     return out
 
 

@@ -7,7 +7,8 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
 
 Tolerances: kernels A and C run the plain versions' float32 steps (built
 with --fmad=false) and differ at most in sum order, so flags are equal and
-positions agree within 1e-3 px; the window gather copies pixels, bit for
+positions agree within 1e-3 px (kernel A: each level from the kernel's own
+start, and the whole call); the window gather copies pixels, bit for
 bit; kernel B's pose agrees within 1e-4 and its inlier sets are equal, for
 one stream and for every (stream, start) of a batched launch; kernel D (the
 ring all-reduce) adds the plain version's numbers in its order, bit for bit.
@@ -34,27 +35,53 @@ def dev():
     return torch.device("cuda")
 
 
+def _hold_kernel_a(args, **kw):
+    """Kernel A on one call: each level's rows against `lk_level_plain`
+    fed the meta rebuilt from the kernel's rows at the level above (flags
+    equal, positions within 1e-3 px), and the whole call against the
+    plain level loop (status equal, positions within 1e-3 px)."""
+    before = lk_lanes.launch_count
+    uv, st, rows = lk_lanes.lk_pyramid(*args, **kw)
+    assert lk_lanes.launch_count == before + 1
+    replay = lk_lanes.replay_levels(*args, rows, **kw)
+    for k, p in zip(rows, replay):
+        assert torch.equal(k[:, 2:], p[:, 2:])
+        torch.testing.assert_close(k[:, :2], p[:, :2], rtol=0, atol=1e-3,
+                                   equal_nan=True)
+    uv_p, st_p = lk_lanes.track_grouped_lanes(
+        *args, level_fn=lk_lanes.lk_level_plain, **kw)
+    assert torch.equal(st, st_p)
+    torch.testing.assert_close(uv, uv_p, rtol=0, atol=1e-3, equal_nan=True)
+    return uv, st
+
+
 def test_lk_level_kernel_matches_plain(dev):
+    """Kernel A (`lk_pyramid`, every level in one launch) on the circuit's
+    pyramids at G = 1 and G = 2, with a masked slot at NaN coordinates and
+    points within a window of the image's edges."""
     lefts, rights, _, _, _ = scenes.circuit(device=dev)
     prev, cur, right = (imops.build_pyramid(torch.as_tensor(f, device=dev), 4)
                         for f in (lefts[0], lefts[1], rights[1]))
     pts, valid, _ = gftt.detect(prev[0], 256)
-    pairs = []
-
-    def record(*args, **kw):
-        p = lk_lanes.lk_level_plain(*args, **kw)
-        pairs.append((lk_lanes.lk_level(*args, **kw), p))
-        return p
-
-    lk_lanes.track_grouped_lanes(
-        [torch.stack([p, p]) for p in prev],
-        [torch.stack([c, r]) for c, r in zip(cur, right)],
-        torch.stack([pts, pts]), torch.stack([pts, pts - 10.0]),
-        torch.stack([valid, valid]), max_iters=12, level_fn=record)
-    assert len(pairs) == 4
-    for k, p in pairs:
-        assert torch.equal(k[:, 2:5], p[:, 2:5])
-        torch.testing.assert_close(k[:, :2], p[:, :2], rtol=0, atol=1e-3)
+    H, W = prev[0].shape
+    pts = pts.clone()
+    pts[0] = float("nan")
+    valid = valid.clone()
+    valid[0] = False
+    edge = torch.tensor([[2.0, 50.0], [W - 3.0, H - 2.5], [300.0, 1.0],
+                         [6.5, H - 6.0]], device=dev)
+    pts[1:5] = edge
+    valid[1:5] = True
+    kw = dict(max_iters=12)
+    uv, st = _hold_kernel_a(([lv[None] for lv in prev],
+                             [lv[None] for lv in cur], pts[None], pts[None],
+                             valid[None]), **kw)
+    assert not bool(st[0, 0]) and int(st.sum()) > 150
+    assert bool(torch.isfinite(uv[0, 1:5]).all())
+    _hold_kernel_a(([torch.stack([p, p]) for p in prev],
+                    [torch.stack([c, r]) for c, r in zip(cur, right)],
+                    torch.stack([pts, pts]), torch.stack([pts, pts - 10.0]),
+                    torch.stack([valid, valid]),), **kw)
 
 
 def test_pose_kernel_matches_plain(dev):
@@ -159,15 +186,22 @@ def test_pose_kernel_over_streams_matches_plain(dev):
 
 
 def test_wrappers_check_their_inputs(dev):
-    img = torch.zeros((1, 40, 60), device=dev)
-    meta = torch.zeros((4, lk_lanes.META_COLS), device=dev)
-    kw = dict(N=4, pad=7, Py=32, Px=32, win=11, max_iters=3, eps=0.01,
-              min_eig_threshold=1e-4)
-    lk_lanes.lk_level(img, img, meta, **kw)
-    with pytest.raises(ValueError):
-        lk_lanes.lk_level(img, img, meta.double(), **kw)
-    with pytest.raises(ValueError):
-        lk_lanes.lk_level(img, img, meta[:, :5].contiguous(), **kw)
+    prev = [torch.zeros((1, 40 >> k, 60 >> k), device=dev) for k in range(3)]
+    pts = torch.full((1, 4, 2), 10.0, device=dev)
+    masks = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    kw = dict(max_iters=3)
+    uv, st, rows = lk_lanes.lk_pyramid(prev, prev, pts, pts, masks, **kw)
+    assert rows.shape == (3, 4, lk_lanes.OUT_COLS) and not st.any()
+    with pytest.raises(ValueError):      # float64 points
+        lk_lanes.lk_pyramid(prev, prev, pts.double(), pts.double(), masks)
+    with pytest.raises(ValueError):      # masks not bool
+        lk_lanes.lk_pyramid(prev, prev, pts, pts, masks.float())
+    with pytest.raises(ValueError):      # the levels of the pyramids differ
+        lk_lanes.lk_pyramid(prev, prev[:2], pts, pts, masks)
+    with pytest.raises(ValueError):      # a level smaller than its window
+        tiny = [torch.zeros((1, 8 >> k, 60 >> k), device=dev)
+                for k in range(4)]
+        lk_lanes.lk_pyramid(tiny, tiny, pts, pts, masks)
     with pytest.raises(ValueError):
         pk.pose_lm(torch.zeros((2, 16), device=dev),
                    torch.zeros((pk.MAX_POINTS + 1, 3), device=dev),
@@ -175,23 +209,35 @@ def test_wrappers_check_their_inputs(dev):
                    torch.zeros((pk.MAX_POINTS + 1, 2), device=dev),
                    torch.zeros((1, 3, 4), device=dev), chi2_th=5.991,
                    rounds=3, iters=6)
+    ma = (("dp", 4), ("mp", 2))
+    x = torch.zeros((8, 33, rr.LANES), device=dev)
+    with pytest.raises(ValueError):      # not contiguous
+        rr.ring_all_reduce_flat(x[:, 1:], "dp", ma)
+    with pytest.raises(ValueError):      # R does not divide by 8 * 4
+        rr.ring_all_reduce_flat(x[:, :24].contiguous(), "dp", ma)
 
 
-# the last case: the sharded BA's payload at K = 16, La = 2048
+# (2, 4) along dp is a ring of two; the 48- and 192-row cases and the
+# sharded BA's payload at K = 16, La = 2048 (the last case) have chunks
+# whose float4 slices do not fill the last block
 @pytest.mark.parametrize("axis,dp,mp,R", [
-    ("dp", 8, 1, 64), ("dp", 4, 2, 32), ("mp", 2, 4, 32),
-    ("dp", 4, 2, 4832)])
+    ("dp", 8, 1, 64), ("dp", 4, 2, 32), ("mp", 2, 4, 32), ("dp", 2, 4, 48),
+    ("mp", 1, 8, 192), ("dp", 4, 2, 4832)])
 def test_ring_reduce_kernel_matches_plain(dev, axis, dp, mp, R):
-    """Kernel D against its plain version, bit for bit, twice in a row (the
-    flags of one launch must not leak into the next); the singleton axis
-    launches nothing."""
+    """Kernel D against its plain version, bit for bit, twice in a row; one
+    call reads nothing back to the host (no synchronising operation); the
+    singleton axis launches nothing."""
     ma = (("dp", dp), ("mp", mp))
     g = torch.Generator(device=dev).manual_seed(R)
     x = torch.randn((dp * mp, R, rr.LANES), generator=g, device=dev)
     want = rr.ring_all_reduce_plain(x, axis, ma)
     before = rr.launch_count
     for _ in range(2):
-        got = rr.ring_all_reduce_flat(x, axis, ma)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = rr.ring_all_reduce_flat(x, axis, ma)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     assert rr.launch_count == before + 2

@@ -128,3 +128,65 @@ def test_masked_nan_slots_flat_image_and_level_guard(frames):
     np.testing.assert_allclose(ut.numpy()[st.numpy()],
                                np.asarray(uj)[np.asarray(sj)], atol=1e-3)
 
+
+@pytest.mark.parametrize("H,windows", [
+    (188, [(32, 32), (32, 40), (40, 48), (32, 64)]),
+    (8, None)])
+def test_kernel_a_level_table(H, windows):
+    """Kernel A's level table (pad, padded sizes, search windows and the fit
+    of each level) against `level_window_shape` and `levels_ok`, on the
+    circuit's 188x620 pyramid (its windows written out) and on an 8-row
+    strip whose smallest level is one row, too small for its window."""
+    win = 11
+    pyr = timg.build_pyramid(torch.zeros((H, 620)), 4)
+    pad, shapes = tlanes.level_table(pyr, win)
+    assert pad == win // 2 + 2 and len(shapes) == 4
+    for level, (lv, sh) in enumerate(zip(pyr, shapes)):
+        assert (sh.H, sh.W) == tuple(lv.shape)
+        assert (sh.Hp, sh.Wp) == (sh.H + 2 * pad, sh.W + 2 * pad)
+        assert (sh.Py, sh.Px) == tlanes.level_window_shape(level, sh.Hp,
+                                                           sh.Wp, win)
+        assert tlanes.levels_ok([lv], win) == sh.fits
+    assert all(sh.fits for sh in shapes) == tlanes.levels_ok(pyr, win)
+    if windows is None:
+        assert not tlanes.levels_ok(pyr, win)
+        assert [sh.fits for sh in shapes] == [True, True, True, False]
+        assert shapes[3].Py > shapes[3].Hp
+    else:
+        assert tlanes.levels_ok(pyr, win)
+        assert [(sh.Py, sh.Px) for sh in shapes] == windows
+
+
+def test_replay_levels_reproduces_the_loop(frames):
+    """`lk_pyramid` on the CPU is the level loop over `lk_level_plain`, with
+    its rows; `replay_levels`, which rebuilds each level's meta from the
+    previous level's rows (as chip_smoke.py and the card tests hold each
+    level of the kernel to the plain version), gives those rows back bit
+    for bit, NaN slots included."""
+    prev, cur = _pyr(frames[0]), _pyr(frames[1])
+    pts = torch.from_numpy(_pts(96, seed=7))[None]
+    init = pts + torch.tensor([1.5, -0.75])
+    masks = torch.ones((1, 96), dtype=torch.bool)
+    masks[0, :6] = False
+    pts[0, :3] = float("nan")
+    pyr_p, pyr_c = [lv[None] for lv in prev], [lv[None] for lv in cur]
+    args = (pyr_p, pyr_c, pts, init, masks)
+    calls = []
+
+    def record(*a, **kw):
+        calls.append(a[2])
+        return tlanes.lk_level_plain(*a, **kw)
+
+    uv_r, st_r = tlanes.track_grouped_lanes(*args, max_iters=8,
+                                            level_fn=record)
+    uv, st, rows = tlanes.lk_pyramid(*args, max_iters=8)
+    exact = dict(rtol=0, atol=0, equal_nan=True)   # NaN slots stay NaN
+    assert len(calls) == 4 and rows.shape == (4, 96, tlanes.OUT_COLS)
+    torch.testing.assert_close(uv, uv_r, **exact)
+    assert torch.equal(st, st_r)
+    assert st.sum() > 60 and not st[0, :3].any()   # the NaN slots
+    torch.testing.assert_close(
+        tlanes.replay_levels(*args, rows, max_iters=8), rows, **exact)
+    pad = tlanes.level_table(pyr_p, 11)[0]
+    torch.testing.assert_close(tlanes.next_guesses(rows[0], pad, 0),
+                               uv.reshape(96, 2), **exact)

@@ -130,6 +130,59 @@ def test_plain_ring_sums_in_ring_order():
     assert want != [np.float32(1.0)] * n
 
 
+def _hop_by_hop(x, axis_name, mesh_axes):
+    """The ring replayed hop by hop as the TPU kernel runs it (the plain
+    version before the one-pass fold): 2(n - 1) hops over all ranks, each
+    rank adding what its left neighbour sent (own + incoming), then passing
+    the finished chunks on."""
+    names = [name for name, _ in mesh_axes]
+    sizes = [int(size) for _, size in mesh_axes]
+    a = names.index(axis_name)
+    n = sizes[a]
+    if n == 1:
+        return x
+    N, R, C = x.shape
+    others = sizes[:a] + sizes[a + 1:]
+    buf = x.reshape(*sizes, R, C).movedim(a, 0).reshape(n, -1, n, R // n, C)
+    buf = buf.clone()
+    me = torch.arange(n)
+    left = (me - 1) % n
+    for g in range(2 * (n - 1)):
+        if g < n - 1:
+            send, recv = (me - g) % n, (me - g - 1) % n
+        else:
+            s = g - (n - 1)
+            send, recv = (me + 1 - s) % n, (me - s) % n
+        incoming = buf[me, :, send][left]
+        if g < n - 1:
+            buf[me, :, recv] = buf[me, :, recv] + incoming
+        else:
+            buf[me, :, recv] = incoming
+    return buf.reshape(n, *others, R, C).movedim(0, a).reshape(N, R, C)
+
+
+@pytest.mark.parametrize("axis", ["dp", "mp"])
+@pytest.mark.parametrize("dp,mp", [(8, 1), (4, 2), (2, 4)])
+def test_one_pass_fold_equals_hop_by_hop_ring(axis, dp, mp):
+    """The one-pass fold (kernel D's function) against the hop-by-hop
+    replay of the ring, bit for bit, on random payloads of mixed
+    magnitudes (a sum-order fault changes the bits)."""
+    ma = (("dp", dp), ("mp", mp))
+    n = dp if axis == "dp" else mp
+    rng = np.random.default_rng(dp * 10 + mp + (axis == "mp"))
+    R = 8 * n * 3
+    x = rng.normal(size=(dp * mp, R, rr.LANES)) \
+        * 10.0 ** rng.integers(-4, 5, size=(dp * mp, R, rr.LANES))
+    x = torch.from_numpy(x.astype(np.float32))
+    got = rr.ring_all_reduce_plain(x, axis, ma)
+    want = _hop_by_hop(x, axis, ma)
+    assert torch.equal(got, want)
+    if n > 2:
+        assert not torch.equal(got, x.reshape(dp, mp, R, rr.LANES).sum(
+            0 if axis == "dp" else 1, keepdim=True).expand(
+            dp, mp, R, rr.LANES).reshape(x.shape))
+
+
 def test_ring_payload_checks():
     ma = (("dp", 4), ("mp", 2))
     with pytest.raises(ValueError):
