@@ -1,40 +1,58 @@
-// Kernel B: the whole multi-start stereo Levenberg-Marquardt pose solve.
+// Kernel B: the whole multi-start stereo Levenberg-Marquardt pose solve,
+// and the choice of the best start.
 //
 // Replaces the TPU kernel stereovision_slam_tpu/ops/pose_pallas.py
-// `_pose_kernel` (called by `solve_pose_multi_lr`). Same function: for each
-// start, rounds x iters LM steps over 2F observations (left and right camera,
-// each with its own intrinsics and rig->camera extrinsic) with a graduated
-// Huber threshold chi2_th * 2^(rounds-1-rnd) (none in the last round), the
-// damped 6x6 normal equations (H + lam diag(H) + 1e-10 I) solved by an
-// unrolled Cholesky, T <- exp(dx) T, acceptance when the robust cost
-// drops (lam * 0.3, else lam * 5), and inlier re-levelling between rounds.
-// Outputs per start: T, the inlier mask, the final robust cost and the inlier
-// count; the wrapper takes the argmin over starts. A launch solves B streams
-// at once (the reference's `jax.vmap` of the solve in multi-stream serving):
-// block b * S + s runs start s of stream b on that stream's points, with the
-// cameras shared.
+// `_pose_kernel` (called by `solve_pose_multi_lr`, which also takes the
+// argmin over the starts). Same function: for each start, rounds x iters LM
+// steps over 2F observations (left and right camera, each with its own
+// intrinsics and rig->camera extrinsic) with a graduated Huber threshold
+// chi2_th * 2^(rounds-1-rnd) (none in the last round), the damped 6x6
+// normal equations (H + lam diag(H) + 1e-10 I) solved by an unrolled
+// Cholesky, T <- exp(dx) T, acceptance when the robust cost drops (lam *
+// 0.3, else lam * 5), and inlier re-levelling between rounds. Outputs per
+// start: T, the inlier mask and the final robust cost; then the start of
+// least cost (the first on ties or NaN, as torch.argmin): its T, its
+// [left; right] inlier mask and its count of left inliers. A launch solves
+// B streams at once (the reference's `jax.vmap` of the solve in
+// multi-stream serving), with the cameras shared.
 //
-// What bounds it on an H100: latency. The inputs are ~10 KB and the work is
-// ~50 MFLOP for S=3, F=256, rounds*iters=18; each LM step is a chain of two
-// block reductions and one serial 6x6 solve on one thread.
+// What bounds it on an H100: latency. The inputs are ~10 KB and the work
+// ~20 MFLOP for S = 3, F = 256, 3 x 6 steps; every LM step is a chain of a
+// pass over the observations, a block reduction, a 6x6 solve and exp(dx).
 //
-// Design: one block per (stream, start), 256 threads, each thread owning the left and
-// right observation of up to kPerThread points (its point data and inlier
-// flags live in registers). Each step reduces the 21 unique H entries, the
-// 6 b entries and the incumbent robust cost with warp shuffles and then
-// shared memory; thread 0 solves and forms exp(dx) T, which is broadcast
-// through shared memory for the candidate-cost reduction. Reductions run in
-// a fixed order, so a launch is deterministic.
+// Design: one block per stream, a group of four warps per start (S <= 8).
+// The stream's points and observations are staged once in shared memory;
+// each thread owns observations f = t, t + 128, ... of both cameras and
+// keeps their inlier flags as bits of a register. One pass over the
+// observations per LM step, at the candidate exp(dx) T: it sums the robust
+// cost and the 21 H and 6 b entries together. Accepted, those sums are the
+// incumbent's for the next step; rejected, T and the inliers are unchanged,
+// so the incumbent's saved sums serve again (the next step would compute
+// the same values): a round costs iters + 1 passes, the re-levelling of the
+// inliers is folded into the first pass of the next round (and the final
+// cost into the last). Each warp reduces its 28 sums by recursive halving
+// (31 shuffles, each lane ends with one sum), writes them to one of three
+// rotating shared buffers, and the block meets at ONE barrier per pass. The
+// incumbent's sums stay in their buffer; a pass writes into the one buffer
+// that no thread may still read. After the barrier every thread sums its
+// start's partials in the same fixed order, solves the damped system (one
+// reciprocal per diagonal entry) and forms exp(dx) T (sincosf) itself, so
+// all threads of a start hold the same T and lambda in registers and take
+// the same branches: no broadcast and no second barrier. Precise math (no
+// fast-math), built with --fmad=false like the other kernels: each
+// observation's terms round as the plain version's do.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPerThread = 4;           // F <= 1024
-constexpr int kRed = 28;                // 21 H + 6 b + cost
+constexpr int kGroupWarps = 4;                  // warps per start
+constexpr int kGroupThreads = 32 * kGroupWarps;
+constexpr int kMaxPoints = 1024;
+constexpr int kMaxStarts = 8;
+constexpr int kSlots = 32;                      // 21 H + 6 b + cost, padded
+constexpr int kCost = 27;
 
 struct Cam {
   float fx, fy, cx, cy, R[9], t[3];
@@ -44,25 +62,26 @@ struct Proj {
   float qx, qy, qz, X, Y, iz, Z, ru, rv;
 };
 
-__device__ __forceinline__ Proj project(const float* T, const Cam& c, float px,
-                                        float py, float pz, float uo, float vo) {
-  Proj p;
-  p.qx = T[0] * px + T[1] * py + T[2] * pz + T[3];
-  p.qy = T[4] * px + T[5] * py + T[6] * pz + T[7];
-  p.qz = T[8] * px + T[9] * py + T[10] * pz + T[11];
-  p.X = c.R[0] * p.qx + c.R[1] * p.qy + c.R[2] * p.qz + c.t[0];
-  p.Y = c.R[3] * p.qx + c.R[4] * p.qy + c.R[5] * p.qz + c.t[1];
-  p.Z = c.R[6] * p.qx + c.R[7] * p.qy + c.R[8] * p.qz + c.t[2];
-  const float Zs = fabsf(p.Z) < 1e-8f ? 1e-8f : p.Z;
-  p.iz = 1.0f / Zs;
-  p.ru = c.fx * p.X * p.iz + c.cx - uo;
-  p.rv = c.fy * p.Y * p.iz + c.cy - vo;
-  return p;
+__device__ __forceinline__ Proj project(const float (&T)[12], const Cam& c,
+                                        float4 p, float uo, float vo) {
+  Proj q;
+  q.qx = T[0] * p.x + T[1] * p.y + T[2] * p.z + T[3];
+  q.qy = T[4] * p.x + T[5] * p.y + T[6] * p.z + T[7];
+  q.qz = T[8] * p.x + T[9] * p.y + T[10] * p.z + T[11];
+  q.X = c.R[0] * q.qx + c.R[1] * q.qy + c.R[2] * q.qz + c.t[0];
+  q.Y = c.R[3] * q.qx + c.R[4] * q.qy + c.R[5] * q.qz + c.t[1];
+  q.Z = c.R[6] * q.qx + c.R[7] * q.qy + c.R[8] * q.qz + c.t[2];
+  const float Zs = fabsf(q.Z) < 1e-8f ? 1e-8f : q.Z;
+  q.iz = 1.0f / Zs;
+  q.ru = c.fx * q.X * q.iz + c.cx - uo;
+  q.rv = c.fy * q.Y * q.iz + c.cy - vo;
+  return q;
 }
 
 // 12 pose-Jacobian columns (a, i) -> a*6+i, the reference's contraction
 // order: J_proj (2x3, structural zeros skipped) times [R_ext | R_ext -hat(q)].
-__device__ __forceinline__ void jac_cols(const Proj& p, const Cam& c, float J[12]) {
+__device__ __forceinline__ void jac_cols(const Proj& p, const Cam& c,
+                                         float J[12]) {
   const float iz2 = p.iz * p.iz;
   const float j00 = c.fx * p.iz, j02 = -c.fx * p.X * iz2;
   const float j11 = c.fy * p.iz, j12 = -c.fy * p.Y * iz2;
@@ -85,65 +104,98 @@ __device__ __forceinline__ float robust(float c, bool huber, float th) {
   return (!huber || c <= th) ? c : 2.0f * sqrtf(th * c) - th;
 }
 
-// Sum kRed-or-fewer per-thread values over the block, in a fixed order.
-template <int K>
-__device__ void block_sum(float (&v)[K], float (*warp_part)[kRed], float* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float s = v[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) warp_part[warp][k] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < K) {
-    float s = warp_part[0][threadIdx.x];
-    for (int w = 1; w < kWarps; ++w) s += warp_part[w][threadIdx.x];
-    total[threadIdx.x] = s;
-  }
-  __syncthreads();
+// Raw chi2 with a point behind the camera at 1e12 (the re-levelling test).
+__device__ __forceinline__ float chi2(const Proj& p) {
+  return p.Z > 1e-6f ? p.ru * p.ru + p.rv * p.rv : 1e12f;
 }
 
-// Solve (6x6 PD) H x = -b, H given as its lower triangle.
-__device__ void chol_solve(const float H[6][6], const float b[6], float x[6]) {
-  float L[6][6];
-  for (int i = 0; i < 6; ++i) {
-    for (int j = 0; j <= i; ++j) {
-      float s = H[i][j];
+// Recursive halving over the warp: round o (16, 8, 4, 2, 1) keeps the half
+// of the live slots that lane bit o selects and adds the partner lane's copy
+// of it, so lane L ends with the warp's sum of slot L after 16 + 8 + 4 + 2 +
+// 1 = 31 shuffles. Each sum is a fixed tree: the result is deterministic.
+// The rounds are template instances, so every slot index is a constant and
+// the vector stays in registers.
+template <int O>
+__device__ __forceinline__ void halving_round(float (&v)[kSlots], int lane) {
+  const bool upper = (lane & O) != 0;
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    const float send = upper ? v[k] : v[k + O];
+    const float keep = upper ? v[k + O] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+  if constexpr (O > 1) halving_round<O / 2>(v, lane);
+}
+
+__device__ __forceinline__ float warp_halving(float (&v)[kSlots]) {
+  halving_round<16>(v, threadIdx.x & 31);
+  return v[0];
+}
+
+// Solve (H + lam diag(H) + 1e-10 I) dx = -b, H given by its 21 lower-triangle
+// sums in row order, by Cholesky with one reciprocal per diagonal entry.
+__device__ __forceinline__ void damped_solve(const float (&tot)[kSlots],
+                                             float lam, float dx[6]) {
+  float L[6][6], inv[6];
+#pragma unroll
+  for (int i = 0, q = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j, ++q) {
+      float s = tot[q];
+      if (i == j) s = (s + lam * s) + 1e-10f;
+#pragma unroll
       for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
-      L[i][j] = (i == j) ? sqrtf(fmaxf(s, 1e-30f)) : s / L[j][j];
+      if (i == j) {
+        const float d = sqrtf(fmaxf(s, 1e-30f));
+        L[i][i] = d;
+        inv[i] = 1.0f / d;
+      } else {
+        L[i][j] = s * inv[j];
+      }
     }
   }
   float y[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
-    float s = -b[i];
+    float s = -tot[21 + i];
+#pragma unroll
     for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
-    y[i] = s / L[i][i];
+    y[i] = s * inv[i];
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
-    for (int k = i + 1; k < 6; ++k) s = s - L[k][i] * x[k];
-    x[i] = s / L[i][i];
+#pragma unroll
+    for (int k = i + 1; k < 6; ++k) s = s - L[k][i] * dx[k];
+    dx[i] = s * inv[i];
   }
 }
 
-// T_new = exp([v, w]) T with the reference's Rodrigues / left-Jacobian forms.
-__device__ void se3_exp_compose(const float dx[6], const float* T, float* Tn) {
+// Tn = exp([v, w]) T with the reference's Rodrigues / left-Jacobian forms.
+__device__ __forceinline__ void se3_exp_compose(const float dx[6],
+                                                const float (&T)[12],
+                                                float (&Tn)[12]) {
   const float wx = dx[3], wy = dx[4], wz = dx[5];
   const float t2 = wx * wx + wy * wy + wz * wz;
   const bool small = t2 < 1e-8f;
   const float t2s = small ? 1.0f : t2;
   const float th = sqrtf(t2s);
-  const float st = sinf(th), ct = cosf(th);
-  const float a = small ? 1.0f - t2 / 6.0f : st / th;
-  const float b = small ? 0.5f - t2 / 24.0f : (1.0f - ct) / t2s;
-  const float c = small ? 1.0f / 6.0f - t2 / 120.0f : (th - st) / (t2s * th);
+  float st, ct;
+  sincosf(th, &st, &ct);
+  // one reciprocal for the three quotients
+  const float ith = 1.0f / th, it2 = ith * ith;
+  const float a = small ? 1.0f - t2 * (1.0f / 6.0f) : st * ith;
+  const float b = small ? 0.5f - t2 * (1.0f / 24.0f) : (1.0f - ct) * it2;
+  const float c = small ? 1.0f / 6.0f - t2 * (1.0f / 120.0f)
+                        : (th - st) * (it2 * ith);
   const float W[3][3] = {{0.0f, -wz, wy}, {wz, 0.0f, -wx}, {-wy, wx, 0.0f}};
   float R[3][3], V[3][3];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
+#pragma unroll
     for (int j = 0; j < 3; ++j) {
       float w2 = 0.0f;
+#pragma unroll
       for (int k = 0; k < 3; ++k)
         if (i != k && k != j) w2 = w2 + W[i][k] * W[k][j];
       const float e = (i == j) ? 1.0f : 0.0f;
@@ -151,8 +203,10 @@ __device__ void se3_exp_compose(const float dx[6], const float* T, float* Tn) {
       V[i][j] = (i == j) ? (e + 0.0f) + c * w2 : (e + b * W[i][j]) + c * w2;
     }
   }
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float tr = ((0.0f + V[i][0] * dx[0]) + V[i][1] * dx[1]) + V[i][2] * dx[2];
+#pragma unroll
     for (int j = 0; j < 4; ++j) {
       float s = ((0.0f + R[i][0] * T[j]) + R[i][1] * T[4 + j]) + R[i][2] * T[8 + j];
       if (j == 3) s = s + tr;
@@ -161,161 +215,274 @@ __device__ void se3_exp_compose(const float dx[6], const float* T, float* Tn) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-pose_lm_kernel(const float* __restrict__ camp, const float* __restrict__ pts,
-               const float* __restrict__ uv, const float* __restrict__ valid,
-               const float* __restrict__ T0, float* __restrict__ T_out,
-               float* __restrict__ inl_out, float* __restrict__ cost_out,
-               float* __restrict__ nin_out, int F, int S, int rounds,
-               int iters, float chi2_th) {
-  __shared__ float warp_part[kWarps][kRed];
-  __shared__ float total[kRed];
-  __shared__ float T_sh[12], Tn_sh[12];
-  __shared__ Cam cams[2];
-  const int bs = blockIdx.x, tid = threadIdx.x;   // b * S + s
-  const int b = bs / S;
-  pts += (size_t)b * F * 3;
-  uv += (size_t)b * F * 4;
-  valid += (size_t)b * F * 2;
+struct Args {
+  const float* camp;       // (2, 16)
+  const float* pts;        // (B, F, 3)
+  const float* uv_l;       // (B, F, 2)
+  const float* uv_r;       // (B, F, 2)
+  const unsigned char* valid_l;   // (B, F) bool
+  const unsigned char* valid_r;
+  const float* T0;         // (B, S, 3, 4)
+  float* T_all;            // (B, S, 3, 4)
+  unsigned char* inl_all;  // (B, S, 2, F) bool
+  float* cost_all;         // (B, S)
+  float* T_best;           // (B, 3, 4)
+  unsigned char* inl_best; // (B, 2F) bool, [left; right]
+  int* n_best;             // (B,) left inliers of the chosen start
+  int F, S, rounds, iters;
+  float chi2_th;
+};
 
-  if (tid < 2) {
-    const float* cp = camp + 16 * tid;
+template <int kStarts>
+struct Smem {
+  Cam cams[2];
+  float4 pts[kMaxPoints];            // (x, y, z, 0)
+  float4 uv[kMaxPoints];             // (ul, vl, ur, vr)
+  unsigned char valid[2][kMaxPoints];
+  float4 part[3][kStarts][kGroupWarps][kSlots / 4];  // rotating partials
+  float2 fin[kStarts][kGroupWarps];   // the final pass: cost, left inliers
+};
+
+// One pass of a start's threads over their observations at pose Tp.
+// kRelevel: first set each observation's inlier bit from its raw chi2 at
+// Tp (valid and chi2 <= lev_th). kFinal: sum the final cost (valid: min(chi2,
+// chi2_th), else chi2_th) into slot 0 and the left inliers into slot 1;
+// otherwise the robust cost into slot kCost and H, b into slots 0-26, over
+// the inliers in front of the camera.
+template <int kStarts, bool kRelevel, bool kFinal>
+__device__ __forceinline__ void pass(const Smem<kStarts>& sm,
+                                     const Cam (&cams)[2], int t, int F,
+                                     const float (&Tp)[12], bool huber,
+                                     float th, float lev_th, float chi2_th,
+                                     unsigned& inl, float (&acc)[kSlots]) {
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) acc[q] = 0.0f;
+  for (int f = t, k = 0; f < F; f += kGroupThreads, ++k) {
+    const float4 p = sm.pts[f];
+    const float4 o = sm.uv[f];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned bit = 1u << (2 * k + h);
+      if (!kRelevel && !(inl & bit)) continue;
+      const Proj pr = project(Tp, cams[h], p, h ? o.z : o.x, h ? o.w : o.y);
+      if (kRelevel) {
+        const bool val = sm.valid[h][f] != 0;
+        const float cr = chi2(pr);
+        inl = (val && cr <= lev_th) ? (inl | bit) : (inl & ~bit);
+        if (kFinal) {
+          acc[0] += val ? fminf(cr, chi2_th) : chi2_th;
+          if (h == 0 && (inl & bit)) acc[1] += 1.0f;
+          continue;
+        }
+        if (!(inl & bit)) continue;
+      }
+      if (!(pr.Z > 1e-6f)) continue;
+      const float c = pr.ru * pr.ru + pr.rv * pr.rv;
+      float w = 1.0f;
+      if (huber && !(c <= th)) w = sqrtf(th / fmaxf(c, 1e-20f));
+      float J[12];
+      jac_cols(pr, cams[h], J);
+      int q = 0;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const float wu = w * J[i], wv = w * J[6 + i];
+#pragma unroll
+        for (int j = 0; j <= i; ++j, ++q) acc[q] += wu * J[j] + wv * J[6 + j];
+        acc[21 + i] += wu * pr.ru + wv * pr.rv;
+      }
+      acc[kCost] += robust(c, huber, th);
+    }
+  }
+}
+
+// The block's sums of start s from the partials of buffer `buf`, in every
+// lane: lane q < 28 adds slot q's warp partials in warp order, then the
+// sums are broadcast by shuffles, so every thread holds the same bits.
+template <int kStarts>
+__device__ __forceinline__ void start_sums(const Smem<kStarts>& sm, int buf,
+                                           int s, float (&tot)[kSlots]) {
+  const int lane = threadIdx.x & 31;
+  const float* p = reinterpret_cast<const float*>(sm.part[buf][s][0]);
+  float mine = p[lane];
+#pragma unroll
+  for (int w = 1; w < kGroupWarps; ++w) mine += p[w * kSlots + lane];
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) tot[q] = __shfl_sync(0xffffffffu, mine, q);
+}
+
+template <int kStarts>
+__device__ __forceinline__ float slot_sum(const Smem<kStarts>& sm, int buf,
+                                          int s, int q) {
+  const float* p = reinterpret_cast<const float*>(sm.part[buf][s][0]);
+  float v = p[q];
+#pragma unroll
+  for (int w = 1; w < kGroupWarps; ++w) v += p[w * kSlots + q];
+  return v;
+}
+
+// The rotating buffer that no thread of the start may still read: neither
+// the incumbent's nor the one written last.
+__device__ __forceinline__ int free_buffer(int inc, int last) {
+  return (inc != 0 && last != 0) ? 0 : (inc != 1 && last != 1) ? 1 : 2;
+}
+
+// Reduce acc over the block into buffer `buf` and wait for every warp: the
+// pass's one barrier.
+template <int kStarts>
+__device__ __forceinline__ void publish(Smem<kStarts>& sm, int buf, int s,
+                                        float (&acc)[kSlots]) {
+  const float v = warp_halving(acc);
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) % kGroupWarps;
+  reinterpret_cast<float*>(sm.part[buf][s][warp])[lane] = v;
+  __syncthreads();
+}
+
+template <int kStarts>
+__global__ void __launch_bounds__(kGroupThreads * kStarts)
+pose_lm_kernel(const Args a) {
+  __shared__ Smem<kStarts> sm;
+  const int b = blockIdx.x, F = a.F, S = a.S;
+  const int s = threadIdx.x / kGroupThreads, t = threadIdx.x % kGroupThreads;
+  const int bs = b * S + s;
+
+  if (threadIdx.x < 2) {
+    const float* cp = a.camp + 16 * threadIdx.x;
     Cam c;
     c.fx = cp[0]; c.fy = cp[1]; c.cx = cp[2]; c.cy = cp[3];
     for (int k = 0; k < 9; ++k) c.R[k] = cp[4 + k];
     for (int k = 0; k < 3; ++k) c.t[k] = cp[13 + k];
-    cams[tid] = c;
+    sm.cams[threadIdx.x] = c;
   }
-  if (tid < 12) T_sh[tid] = T0[12 * bs + tid];
-
-  float P[kPerThread][3], O[kPerThread][4];
-  bool val[kPerThread][2], inl[kPerThread][2];
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    const size_t bf = (size_t)b * F + f;
+    sm.pts[f] = make_float4(a.pts[3 * bf], a.pts[3 * bf + 1], a.pts[3 * bf + 2], 0.0f);
+    const float2 l = reinterpret_cast<const float2*>(a.uv_l)[bf];
+    const float2 r = reinterpret_cast<const float2*>(a.uv_r)[bf];
+    sm.uv[f] = make_float4(l.x, l.y, r.x, r.y);
+    sm.valid[0][f] = a.valid_l[bf];
+    sm.valid[1][f] = a.valid_r[bf];
+  }
+  float T[12];
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int f = tid + kThreads * k;
-    const bool on = f < F;
-    for (int d = 0; d < 3; ++d) P[k][d] = on ? pts[3 * f + d] : 0.0f;
-    for (int d = 0; d < 4; ++d) O[k][d] = on ? uv[4 * f + d] : 0.0f;
-    for (int h = 0; h < 2; ++h) {
-      val[k][h] = on && valid[2 * f + h] > 0.5f;
-      inl[k][h] = val[k][h];
-    }
-  }
+  for (int q = 0; q < 12; ++q) T[q] = a.T0[12 * bs + q];
   __syncthreads();
+  const Cam cams[2] = {sm.cams[0], sm.cams[1]};
 
-  for (int rnd = 0; rnd < rounds; ++rnd) {
-    const bool huber = rnd < rounds - 1;
-    const float th = chi2_th * (float)(1 << (rounds - 1 - rnd));
-    float lam = 1e-6f;                     // thread 0's copy is the live one
-    for (int itr = 0; itr < iters; ++itr) {
-      float acc[kRed];
-#pragma unroll
-      for (int q = 0; q < kRed; ++q) acc[q] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        for (int h = 0; h < 2; ++h) {
-          if (!inl[k][h]) continue;
-          const Proj p = project(T_sh, cams[h], P[k][0], P[k][1], P[k][2],
-                                 O[k][2 * h], O[k][2 * h + 1]);
-          if (!(p.Z > 1e-6f)) continue;
-          const float c = p.ru * p.ru + p.rv * p.rv;
-          float w = 1.0f;
-          if (huber && !(c <= th)) w = sqrtf(th / fmaxf(c, 1e-20f));
-          float J[12];
-          jac_cols(p, cams[h], J);
-          int q = 0;
-          for (int i = 0; i < 6; ++i)
-            for (int j = 0; j <= i; ++j, ++q)
-              acc[q] += (w * J[i]) * J[j] + (w * J[6 + i]) * J[6 + j];
-          for (int i = 0; i < 6; ++i)
-            acc[21 + i] += (w * J[i]) * p.ru + (w * J[6 + i]) * p.rv;
-          acc[27] += robust(c, huber, th);
-        }
+  // inlier bits start as the valid observations (round 0 does not re-level)
+  unsigned inl = 0;
+  for (int f = t, k = 0; f < F; f += kGroupThreads, ++k)
+    for (int h = 0; h < 2; ++h)
+      if (sm.valid[h][f]) inl |= 1u << (2 * k + h);
+
+  // The incumbent's sums stay in shared memory, in buffer `inc`: a pass
+  // writes into the one buffer that no thread of its start may still read.
+  float acc[kSlots];
+  int inc = 0, last = 0;
+  for (int rnd = 0; rnd < a.rounds; ++rnd) {
+    const bool huber = rnd < a.rounds - 1;
+    const float th = a.chi2_th * (float)(1 << (a.rounds - 1 - rnd));
+    // the incumbent's sums, after re-levelling on the previous round's
+    // threshold
+    const float lev_th = a.chi2_th * (float)(1 << max(a.rounds - 1 - rnd, 0));
+    if (rnd == 0)
+      pass<kStarts, false, false>(sm, cams, t, F, T, huber, th, 0.0f, a.chi2_th, inl, acc);
+    else
+      pass<kStarts, true, false>(sm, cams, t, F, T, huber, th, lev_th, a.chi2_th, inl, acc);
+    inc = last = free_buffer(inc, last);
+    publish(sm, inc, s, acc);
+    float inc_cost = slot_sum(sm, inc, s, kCost);
+    float lam = 1e-6f;
+    for (int itr = 0; itr < a.iters; ++itr) {
+      float dx[6], Tn[12];
+      {
+        float tot[kSlots];
+        start_sums(sm, inc, s, tot);
+        damped_solve(tot, lam, dx);
       }
-      block_sum<kRed>(acc, warp_part, total);
-      if (tid == 0) {
-        float H[6][6], b[6], dx[6];
-        int q = 0;
-        for (int i = 0; i < 6; ++i)
-          for (int j = 0; j <= i; ++j, ++q) H[i][j] = H[j][i] = total[q];
-        for (int i = 0; i < 6; ++i) {
-          H[i][i] = (H[i][i] + lam * H[i][i]) + 1e-10f;
-          b[i] = total[21 + i];
-        }
-        chol_solve(H, b, dx);
-        se3_exp_compose(dx, T_sh, Tn_sh);
-      }
-      const float cost_T = total[27];
-      __syncthreads();
-      float cn[1] = {0.0f};
+      se3_exp_compose(dx, T, Tn);
+      pass<kStarts, false, false>(sm, cams, t, F, Tn, huber, th, 0.0f, a.chi2_th, inl, acc);
+      last = free_buffer(inc, last);
+      publish(sm, last, s, acc);
+      const float cand = slot_sum(sm, last, s, kCost);
+      if (cand < inc_cost) {
 #pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        for (int h = 0; h < 2; ++h) {
-          if (!inl[k][h]) continue;
-          const Proj p = project(Tn_sh, cams[h], P[k][0], P[k][1], P[k][2],
-                                 O[k][2 * h], O[k][2 * h + 1]);
-          if (p.Z > 1e-6f) cn[0] += robust(p.ru * p.ru + p.rv * p.rv, huber, th);
-        }
-      }
-      block_sum<1>(cn, warp_part, total);
-      if (tid == 0) {
-        const bool better = total[0] < cost_T;
-        if (better) {
-          for (int q = 0; q < 12; ++q) T_sh[q] = Tn_sh[q];
-          lam = fmaxf(lam * 0.3f, 1e-9f);
-        } else {
-          lam = fminf(lam * 5.0f, 1e5f);
-        }
-      }
-      __syncthreads();
-    }
-    // re-level the inliers on the raw chi2 at the refined pose
-    const float next_th = chi2_th * (float)(1 << max(rounds - 2 - rnd, 0));
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      for (int h = 0; h < 2; ++h) {
-        const Proj p = project(T_sh, cams[h], P[k][0], P[k][1], P[k][2],
-                               O[k][2 * h], O[k][2 * h + 1]);
-        const float c = p.Z > 1e-6f ? p.ru * p.ru + p.rv * p.rv : 1e12f;
-        inl[k][h] = val[k][h] && c <= next_th;
+        for (int q = 0; q < 12; ++q) T[q] = Tn[q];
+        inc = last;
+        inc_cost = cand;
+        lam = fmaxf(lam * 0.3f, 1e-9f);
+      } else {
+        lam = fminf(lam * 5.0f, 1e5f);
       }
     }
   }
-
-  float fin[2] = {0.0f, 0.0f};
+  // the last re-levelling (on chi2_th) and the final cost, then the argmin
+  pass<kStarts, true, true>(sm, cams, t, F, T, false, 0.0f, a.chi2_th, a.chi2_th, inl, acc);
+  {
+    const float v = warp_halving(acc);
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) % kGroupWarps;
+    if (lane < 2) reinterpret_cast<float*>(&sm.fin[s][warp])[lane] = v;
+    __syncthreads();
+  }
+  float my_cost = 0.0f, best_cost = 0.0f, n_left = 0.0f;
+  int best = 0;
+  for (int u = 0; u < S; ++u) {
+    float c = sm.fin[u][0].x, n = sm.fin[u][0].y;
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int f = tid + kThreads * k;
-    if (f >= F) continue;
+    for (int w = 1; w < kGroupWarps; ++w) {
+      c += sm.fin[u][w].x;
+      n += sm.fin[u][w].y;
+    }
+    if (u == s) my_cost = c;
+    // torch.argmin: the first NaN, else the first least cost
+    if (u == 0 || (!isnan(best_cost) && (isnan(c) || c < best_cost))) {
+      best = u;
+      best_cost = c;
+      n_left = n;
+    }
+  }
+
+  for (int f = t, k = 0; f < F; f += kGroupThreads, ++k) {
     for (int h = 0; h < 2; ++h) {
-      const Proj p = project(T_sh, cams[h], P[k][0], P[k][1], P[k][2],
-                             O[k][2 * h], O[k][2 * h + 1]);
-      const float c = p.Z > 1e-6f ? p.ru * p.ru + p.rv * p.rv : 1e12f;
-      fin[0] += val[k][h] ? fminf(c, chi2_th) : chi2_th;
-      fin[1] += inl[k][h] ? 1.0f : 0.0f;
-      inl_out[((size_t)bs * 2 + h) * F + f] = inl[k][h] ? 1.0f : 0.0f;
+      const unsigned char on = (inl >> (2 * k + h)) & 1u;
+      a.inl_all[((size_t)bs * 2 + h) * F + f] = on;
+      if (s == best) a.inl_best[((size_t)b * 2 + h) * F + f] = on;
     }
   }
-  block_sum<2>(fin, warp_part, total);
-  if (tid < 12) T_out[12 * bs + tid] = T_sh[tid];
-  if (tid == 0) {
-    cost_out[bs] = total[0];
-    nin_out[bs] = total[1];
+  if (t == 0) {
+#pragma unroll
+    for (int q = 0; q < 12; ++q) a.T_all[12 * bs + q] = T[q];
+    a.cost_all[bs] = my_cost;
+    if (s == best) {
+#pragma unroll
+      for (int q = 0; q < 12; ++q) a.T_best[12 * b + q] = T[q];
+      a.n_best[b] = (int)n_left;
+    }
   }
 }
 
 }  // namespace
 
+// One block per stream, four warps per start. Returns the CUDA error of the
+// launch, or cudaErrorInvalidValue for sizes the kernel does not take.
 extern "C" int pose_lm_launch(const float* camp, const float* pts,
-                              const float* uv, const float* valid,
-                              const float* T0, float* T_out, float* inl_out,
-                              float* cost_out, float* nin_out, int B, int F,
-                              int S, int rounds, int iters, float chi2_th,
-                              void* stream) {
-  if (F > kThreads * kPerThread || rounds > 30) return (int)cudaErrorInvalidValue;
-  if (B == 0 || S == 0) return 0;
-  pose_lm_kernel<<<B * S, kThreads, 0, (cudaStream_t)stream>>>(
-      camp, pts, uv, valid, T0, T_out, inl_out, cost_out, nin_out, F, S,
-      rounds, iters, chi2_th);
+                              const float* uv_l, const float* uv_r,
+                              const unsigned char* valid_l,
+                              const unsigned char* valid_r, const float* T0,
+                              float* T_all, unsigned char* inl_all,
+                              float* cost_all, float* T_best,
+                              unsigned char* inl_best, int* n_best, int B,
+                              int F, int S, int rounds, int iters,
+                              float chi2_th, void* stream) {
+  if (F < 0 || F > kMaxPoints || S < 1 || S > kMaxStarts || rounds < 1
+      || rounds > 30 || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const Args a{camp, pts, uv_l, uv_r, valid_l, valid_r, T0, T_all, inl_all,
+               cost_all, T_best, inl_best, n_best, F, S, rounds, iters,
+               chi2_th};
+  if (S <= 3)
+    pose_lm_kernel<3><<<B, kGroupThreads * S, 0, (cudaStream_t)stream>>>(a);
+  else
+    pose_lm_kernel<kMaxStarts><<<B, kGroupThreads * S, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from stereovision_slam_torch.ops import gather, lk_iterate, lk_lanes
 from stereovision_slam_torch.ops import image as imops
 
-_WINDOW_MARGIN = 10   # px each side a point may travel within one level
+_WINDOW_MARGIN = lk_iterate.WINDOW_MARGIN   # px a point may travel per level
 _MODES = (None, "lanes", "xla", "pallas")
 
 

@@ -10,10 +10,13 @@ initial freeze flags, the guesses and the window corners, all in padded
 level coordinates. It launches the kernel on a CUDA tensor and runs
 `lk_iterate_plain` on a CPU tensor.
 
-Both follow the reference kernel's row-streamed order: per patch row the
-4-term bilinear sum, then the row sums of diff * gx and diff * gy
-(columns in order), added to bx, by row by row. That order is why the
-reference holds this kernel to its XLA loop within 2e-3 px only.
+Both sum in the kernel's order, so they agree bit for bit: each patch row
+splits into two halves of ceil(R/2) and floor(R/2) columns, each half sums
+diff * gx and diff * gy over its columns in order, the two halves of a row
+are added, and the rows, padded to 16 with zeros, are added as a pairwise
+tree (row i + row i + 8, then + 4, + 2, + 1): the kernel's warp butterfly.
+The reference streams the rows in order instead, which is why the tests
+hold this version to the reference's kernel within 1e-3 px.
 """
 
 from __future__ import annotations
@@ -26,11 +29,36 @@ from stereovision_slam_torch.ops import _cuda
 from stereovision_slam_torch.ops.image import floor_int
 
 OUT_COLS = 5     # [x, y, frozen, left_win, iterations]
+MAX_WIN = 11     # the kernel's patch sizes: 1 to 11
+WINDOW_MARGIN = 10   # its windows: P = S + 2 * 10 (`ops/lk.py`'s)
 launch_count = 0
 # lk_iterate_launch(win, tmpl, gx, gy, coef, flags, pts, corner, out, N, S, P,
 #                   max_iters, W, H, eps2, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_void_p])
+
+
+def _row_tree(e: torch.Tensor) -> torch.Tensor:
+    """(N, R, R) -> (N,) in the kernel's order: per row the sums of its two
+    column halves (columns in order), added; then the rows, padded to 16
+    with zeros, as a pairwise tree."""
+    N, R, _ = e.shape
+    h0 = (R + 1) // 2
+
+    def cols(lo, hi):
+        if hi <= lo:
+            return torch.zeros_like(e[:, :, 0])
+        acc = e[:, :, lo]
+        for c in range(lo + 1, hi):
+            acc = acc + e[:, :, c]
+        return acc
+
+    rows = cols(0, h0) + cols(h0, R)
+    x = torch.cat([rows, rows.new_zeros((N, 16 - R))], dim=1)
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        x = x[:, :half] + x[:, half:]
+    return x[:, 0]
 
 
 def lk_iterate_plain(win, tmpl, gx, gy, coef, flags, guesses, corner, *,
@@ -70,14 +98,7 @@ def lk_iterate_plain(win, tmpl, gx, gy, coef, flags, guesses, corner, *,
                + (1 - fy) * fx * raw[:, :-1, 1:]
                + fy * (1 - fx) * raw[:, 1:, :-1] + fy * fx * raw[:, 1:, 1:])
         diff = cur - tmpl
-        ex, ey = diff * gx, diff * gy            # (N, R, R)
-        rx, ry = ex[:, :, 0], ey[:, :, 0]        # row sums, columns in order
-        for c in range(1, R):
-            rx, ry = rx + ex[:, :, c], ry + ey[:, :, c]
-        bx = torch.zeros_like(px)
-        by = torch.zeros_like(px)
-        for i in range(R):                       # then rows in order
-            bx, by = bx + rx[:, i], by + ry[:, i]
+        bx, by = _row_tree(diff * gx), _row_tree(diff * gy)
         dx = (gyy * bx - gxy * by) / det_safe
         dy = (gxx * by - gxy * bx) / det_safe
         inb = g_ok & in_win
@@ -100,7 +121,8 @@ def lk_iterate(win, tmpl, gx, gy, coef, flags, guesses, corner, *, S: int,
     win (N, P, P); tmpl, gx, gy (N, S-1, S-1); coef (N, 4) [gxx, gxy, gyy,
     det_safe]; flags (N, 2) [solvable, frozen0] as 0/1; guesses and corner
     (N, 2) (x, y); all float32. W, H: the padded level's size. Returns
-    (N, 5) [x, y, frozen, left_win, iterations]."""
+    (N, 5) [x, y, frozen, left_win, iterations]. The kernel takes S - 1 <=
+    MAX_WIN, P = S + 2 * WINDOW_MARGIN and a 16-byte aligned `win`."""
     kw = dict(S=S, P=P, max_iters=max_iters, eps=eps, W=W, H=H)
     if win.device.type == "cpu":
         return lk_iterate_plain(win, tmpl, gx, gy, coef, flags, guesses,
@@ -117,6 +139,12 @@ def lk_iterate(win, tmpl, gx, gy, coef, flags, guesses, corner, *, S: int,
                 or not t.is_contiguous() or t.device != win.device):
             raise ValueError(f"lk_iterate: {name} must be a contiguous "
                              f"float32 {shape} tensor on {win.device}")
+    if not 1 <= R <= MAX_WIN or P != S + 2 * WINDOW_MARGIN:
+        raise ValueError(f"lk_iterate: patch {R} and window {P}: the kernel "
+                         f"takes patches of 1 to {MAX_WIN} and windows of "
+                         f"patch + {2 * WINDOW_MARGIN + 1}")
+    if win.data_ptr() % 16:
+        raise ValueError("lk_iterate: win must be 16-byte aligned")
     out = torch.empty((N, OUT_COLS), dtype=torch.float32, device=win.device)
     fn = _cuda.function("lk_iterate", "lk_iterate_launch", _ARGTYPES)
     global launch_count

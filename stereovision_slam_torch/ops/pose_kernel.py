@@ -1,13 +1,20 @@
-"""Kernel B: the whole multi-start stereo LM pose solve (counterpart of
-`ops/pose_pallas.py`, whose `_pose_kernel` the CUDA kernel in
-`csrc/pose_lm.cu` replaces).
+"""Kernel B: the whole multi-start stereo LM pose solve and the choice of
+the best start (counterpart of `ops/pose_pallas.py`, whose `_pose_kernel`
+and `solve_pose_multi_lr` the CUDA kernel in `csrc/pose_lm.cu` replaces).
 
 Per start: `rounds x iters` LM steps over the 2F observations (left and
 right camera, each with its own intrinsics and rig->camera extrinsic), a
 graduated Huber threshold chi2_th * 2^(rounds-1-rnd), the damped 6x6 normal
 equations solved by Cholesky, `se3_exp(dx) @ T`, incumbent-cost acceptance
 with the 0.3 / 5 damping schedule, and inlier re-levelling between rounds.
-The caller keeps the start with the lowest robust cost, first index on ties.
+Then the start with the lowest robust cost, first index on ties.
+
+One pass over the observations per LM step: the normal equations and the
+robust cost are formed together at the candidate pose. Accepted, they are
+the next step's incumbent sums; rejected, the incumbent's saved sums serve
+again, which are the values a second pass would compute from the same
+inputs. The plain version runs that schedule too (a test holds it bit for
+bit to the two-pass schedule).
 
 `pose_lm` launches the kernel on a CUDA tensor and runs `pose_lm_plain` on a
 CPU tensor. Both take an optional leading stream axis B (multi-stream
@@ -18,6 +25,7 @@ serving, where the reference vmaps the solve): one launch covers every
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -25,30 +33,48 @@ from stereovision_slam_torch.geometry import se3
 from stereovision_slam_torch.ops import _cuda
 
 MAX_POINTS = 1024
+MAX_STARTS = 8
 launch_count = 0
-# pose_lm_launch(camp, pts, uv, valid, T0, T_out, inl_out, cost_out, nin_out,
-#                B, F, S, rounds, iters, chi2_th, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float]
+# pose_lm_launch(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, T_all, inl_all,
+#                cost_all, T_best, inl_best, n_best, B, F, S, rounds, iters,
+#                chi2_th, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
-def cam_params(cam) -> torch.Tensor:
+class PoseSolve(NamedTuple):
+    T_all: torch.Tensor      # ([B,] S, 3, 4) each start's pose
+    inl_all: torch.Tensor    # ([B,] S, 2, F) bool, each start's inliers
+    cost: torch.Tensor       # ([B,] S) each start's final robust cost
+    T: torch.Tensor          # ([B,] 3, 4) the chosen start's pose
+    inlier: torch.Tensor     # ([B,] 2F) bool, its [left; right] inliers
+    n_inliers: torch.Tensor  # ([B,]) int32, its left inliers
+
+
+def _cam_params(cam) -> torch.Tensor:
     """(16,) [fx, fy, cx, cy, R (9), t (3)] of a camera's extrinsic."""
     return torch.cat([torch.stack([cam.fx, cam.fy, cam.cx, cam.cy]),
                       cam.pose[:3, :3].reshape(9), cam.pose[:3, 3]]
                      ).to(torch.float32)
 
 
-def pose_lm_plain(camp, pts, uv, valid, T0, *, chi2_th: float, rounds: int,
-                  iters: int):
+def camera_block(cam_left, cam_right) -> torch.Tensor:
+    """The rig's (2, 16) contiguous float32 camera parameters, kernel B's
+    `camp` input: built once per rig, not per frame."""
+    return torch.stack([_cam_params(cam_left),
+                        _cam_params(cam_right)]).contiguous()
+
+
+def pose_lm_plain(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *,
+                  chi2_th: float, rounds: int, iters: int) -> PoseSolve:
     """Plain PyTorch version of the kernel, all streams and starts at once.
 
-    camp (2, 16); pts ([B,] F, 3); uv ([B,] F, 4) [ul, vl, ur, vr]; valid
-    ([B,] F, 2) float; T0 ([B,] S, 3, 4). Returns (T ([B,] S, 3, 4), inlier
-    ([B,] S, 2, F) float, cost ([B,] S), n_inliers ([B,] S))."""
+    camp (2, 16); pts ([B,] F, 3); uv_l, uv_r ([B,] F, 2); valid_l, valid_r
+    ([B,] F) bool; T0 ([B,] S, 3, 4). Returns a `PoseSolve`."""
     single = pts.dim() == 2
     if single:
-        pts, uv, valid, T0 = pts[None], uv[None], valid[None], T0[None]
+        pts, uv_l, uv_r, valid_l, valid_r, T0 = (
+            x[None] for x in (pts, uv_l, uv_r, valid_l, valid_r, T0))
     B, S = T0.shape[:2]
     f32 = torch.float32
     col = [camp[:, i][None, :, None] for i in range(16)]     # (1, 2, 1)
@@ -60,9 +86,9 @@ def pose_lm_plain(camp, pts, uv, valid, T0, *, chi2_th: float, rounds: int,
         return x.repeat_interleave(S, dim=0)
 
     px, py, pz = (per_start(pts[:, None, :, i]) for i in range(3))
-    u_obs = per_start(torch.stack([uv[..., 0], uv[..., 2]], dim=1))
-    v_obs = per_start(torch.stack([uv[..., 1], uv[..., 3]], dim=1))
-    valid = per_start(valid.transpose(1, 2) > 0.5)           # (BS, 2, F)
+    u_obs = per_start(torch.stack([uv_l[..., 0], uv_r[..., 0]], dim=1))
+    v_obs = per_start(torch.stack([uv_l[..., 1], uv_r[..., 1]], dim=1))
+    valid = per_start(torch.stack([valid_l, valid_r], dim=1))  # (BS, 2, F)
 
     def project(T):
         t = [[T[:, i, j][:, None, None] for j in range(4)] for i in range(3)]
@@ -105,123 +131,132 @@ def pose_lm_plain(camp, pts, uv, valid, T0, *, chi2_th: float, rounds: int,
     def s11(x):
         return x.sum(dim=(1, 2))
 
+    def normal_eq(T, inlier, robust_th):
+        """H (BS, 6, 6), b (BS, 6) and the robust cost (BS,) over the
+        inliers in front of the camera at T."""
+        qx, qy, qz, X, Y, iz, Z, ru, rv = project(T)
+        front = Z > 1e-6
+        w = inlier.to(f32) * front.to(f32)
+        c = ru * ru + rv * rv
+        if robust_th is not None:
+            w = w * torch.where(
+                c <= robust_th, torch.ones_like(c),
+                torch.sqrt(robust_th / torch.clamp(c, min=1e-20)))
+            c = torch.where(c <= robust_th, c,
+                            2.0 * torch.sqrt(robust_th * c) - robust_th)
+        J = jac_cols(qx, qy, qz, X, Y, iz)
+        wJ = [w * cj for cj in J]
+        H = torch.stack([torch.stack([
+            s11(wJ[i] * J[j] + wJ[6 + i] * J[6 + j]) for j in range(6)],
+            dim=-1) for i in range(6)], dim=-2)
+        b = torch.stack([s11(wJ[i] * ru + wJ[6 + i] * rv)
+                         for i in range(6)], dim=-1)
+        cost = s11(torch.where(inlier & front, c, torch.zeros_like(c)))
+        return H, b, cost
+
     T = T0.reshape(B * S, 3, 4)
     inlier = valid
     for rnd in range(rounds):
-        use_huber = rnd < rounds - 1
+        if rnd > 0:       # re-level on the previous round's threshold
+            lev = float(2 ** max(rounds - 1 - rnd, 0))
+            inlier = valid & (chi2_at(T) <= chi2_th * lev)
         round_th = float(torch.tensor(chi2_th * float(2 ** (rounds - 1 - rnd)),
                                       dtype=f32))
-        inl_f = inlier.to(f32)
+        robust_th = round_th if rnd < rounds - 1 else None
+        H, b, cost_T = normal_eq(T, inlier, robust_th)
         lam = torch.full((B * S,), 1e-6, dtype=f32, device=T.device)
-
-        def robust(cq, mask):
-            if use_huber:
-                cq = torch.where(cq <= round_th, cq,
-                                 2.0 * torch.sqrt(round_th * cq) - round_th)
-            return s11(torch.where(mask, cq, torch.zeros_like(cq)))
-
         for _ in range(iters):
-            qx, qy, qz, X, Y, iz, Z, ru, rv = project(T)
-            w = inl_f * (Z > 1e-6).to(f32)
-            c = ru * ru + rv * rv
-            if use_huber:
-                w = w * torch.where(
-                    c <= round_th, torch.ones_like(c),
-                    torch.sqrt(round_th / torch.clamp(c, min=1e-20)))
-            J = jac_cols(qx, qy, qz, X, Y, iz)
-            wJ = [w * cj for cj in J]
-            H = torch.stack([torch.stack([
-                s11(wJ[i] * J[j] + wJ[6 + i] * J[6 + j]) for j in range(6)],
-                dim=-1) for i in range(6)], dim=-2)          # (S, 6, 6)
-            b = torch.stack([s11(wJ[i] * ru + wJ[6 + i] * rv)
-                             for i in range(6)], dim=-1)     # (S, 6)
             diag = torch.diagonal(H, dim1=-2, dim2=-1)
             Hd = H + torch.diag_embed(lam[:, None] * diag + 1e-10)
             L, _ = torch.linalg.cholesky_ex(Hd)
             dx = torch.cholesky_solve(-b[..., None], L)[..., 0]
             T_new = se3.se3_compose(se3.se3_exp(dx), T)
-            cost_T = robust(c, inlier & (Z > 1e-6))
-            _, _, _, _, _, _, Zn, run, rvn = project(T_new)
-            cost_N = robust(run * run + rvn * rvn, inlier & (Zn > 1e-6))
+            H_new, b_new, cost_N = normal_eq(T_new, inlier, robust_th)
             better = cost_N < cost_T
             T = torch.where(better[:, None, None], T_new, T)
+            H = torch.where(better[:, None, None], H_new, H)
+            b = torch.where(better[:, None], b_new, b)
+            cost_T = torch.where(better, cost_N, cost_T)
             lam = torch.where(better, torch.clamp(lam * 0.3, min=1e-9),
                               torch.clamp(lam * 5.0, max=1e5))
-        next_scale = float(2 ** max(rounds - 2 - rnd, 0))
-        inlier = valid & (chi2_at(T) <= chi2_th * next_scale)
+    inlier = valid & (chi2_at(T) <= chi2_th)
     c_fin = chi2_at(T)
     cost = s11(torch.where(valid, torch.clamp(c_fin, max=chi2_th),
                            torch.full_like(c_fin, chi2_th)))
-    inl = inlier.to(f32)
-    out = (T.reshape(B, -1, 3, 4), inl.reshape(B, -1, 2, inl.shape[-1]),
-           cost.reshape(B, -1), s11(inl).reshape(B, -1))
-    return tuple(o[0] for o in out) if single else out
+    T_all = T.reshape(B, S, 3, 4)
+    inl_all = inlier.reshape(B, S, 2, -1)
+    cost = cost.reshape(B, S)
+    best = torch.argmin(cost, dim=-1)                         # (B,)
+    rows = torch.arange(B, device=T.device)
+    inl = inl_all[rows, best]                                 # (B, 2, F)
+    out = PoseSolve(T_all, inl_all, cost, T_all[rows, best],
+                    inl.reshape(B, -1),
+                    inl[:, 0].sum(dim=-1).to(torch.int32))
+    return PoseSolve(*(o[0] for o in out)) if single else out
 
 
-def pose_lm(camp, pts, uv, valid, T0, *, chi2_th: float, rounds: int,
-            iters: int):
-    """All S starts of the LM schedule, for one stream or a leading axis of
-    B streams: the CUDA kernel (one block per stream and start) on a CUDA
-    tensor, `pose_lm_plain` on a CPU tensor. Same signature and outputs as
-    `pose_lm_plain`."""
+def pose_lm(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *, chi2_th: float,
+            rounds: int, iters: int) -> PoseSolve:
+    """All S starts of the LM schedule and the best of them, for one stream
+    or a leading axis of B streams: the CUDA kernel (one block per stream)
+    on a CUDA tensor, `pose_lm_plain` on a CPU tensor. Same signature and
+    outputs as `pose_lm_plain`. The kernel takes S <= MAX_STARTS starts,
+    F <= MAX_POINTS points and rounds >= 1."""
     kw = dict(chi2_th=chi2_th, rounds=rounds, iters=iters)
+    args = (camp, pts, uv_l, uv_r, valid_l, valid_r, T0)
     if pts.device.type == "cpu":
-        return pose_lm_plain(camp, pts, uv, valid, T0, **kw)
+        return pose_lm_plain(*args, **kw)
     if pts.device.type != "cuda":
         raise ValueError(f"pose_lm: unsupported device {pts.device}")
     lead = pts.shape[:-2]
     F, S = pts.shape[-2], T0.shape[-3]
     B = int(lead.numel())
-    shapes = {"camp": (2, 16), "pts": (*lead, F, 3), "uv": (*lead, F, 4),
-              "valid": (*lead, F, 2), "T0": (*lead, S, 3, 4)}
-    for name, t in zip(shapes, (camp, pts, uv, valid, T0)):
-        if (t.shape != shapes[name] or t.dtype != torch.float32
-                or not t.is_contiguous() or t.device != pts.device):
-            raise ValueError(f"pose_lm: {name} must be a contiguous float32 "
-                             f"{shapes[name]} tensor on {pts.device}")
+    f32, b8 = torch.float32, torch.bool
+    want = {"camp": ((2, 16), f32), "pts": ((*lead, F, 3), f32),
+            "uv_l": ((*lead, F, 2), f32), "uv_r": ((*lead, F, 2), f32),
+            "valid_l": ((*lead, F), b8), "valid_r": ((*lead, F), b8),
+            "T0": ((*lead, S, 3, 4), f32)}
+    for (name, (shape, dtype)), t in zip(want.items(), args):
+        if (t.shape != shape or t.dtype != dtype or not t.is_contiguous()
+                or t.device != pts.device or t.data_ptr() % 8):
+            raise ValueError(f"pose_lm: {name} must be a contiguous, 8-byte "
+                             f"aligned {dtype} {shape} tensor on {pts.device}")
     if len(lead) > 1:
         raise ValueError("pose_lm: at most one stream axis")
     if F > MAX_POINTS:
         raise ValueError(f"pose_lm: at most {MAX_POINTS} points, got {F}")
+    if not 1 <= S <= MAX_STARTS:
+        raise ValueError(f"pose_lm: 1 to {MAX_STARTS} starts, got {S}")
+    if rounds < 1:
+        raise ValueError(f"pose_lm: at least one round, got {rounds}")
     dev = pts.device
-    T_out = torch.empty((*lead, S, 3, 4), dtype=torch.float32, device=dev)
-    inl_out = torch.empty((*lead, S, 2, F), dtype=torch.float32, device=dev)
-    cost_out = torch.empty((*lead, S), dtype=torch.float32, device=dev)
-    nin_out = torch.empty((*lead, S), dtype=torch.float32, device=dev)
+    out = PoseSolve(
+        T_all=torch.empty((*lead, S, 3, 4), dtype=f32, device=dev),
+        inl_all=torch.empty((*lead, S, 2, F), dtype=b8, device=dev),
+        cost=torch.empty((*lead, S), dtype=f32, device=dev),
+        T=torch.empty((*lead, 3, 4), dtype=f32, device=dev),
+        inlier=torch.empty((*lead, 2 * F), dtype=b8, device=dev),
+        n_inliers=torch.empty(lead, dtype=torch.int32, device=dev))
     fn = _cuda.function("pose_lm", "pose_lm_launch", _ARGTYPES)
     global launch_count
     launch_count += 1
-    code = fn(camp.data_ptr(), pts.data_ptr(), uv.data_ptr(),
-              valid.data_ptr(), T0.data_ptr(), T_out.data_ptr(),
-              inl_out.data_ptr(), cost_out.data_ptr(), nin_out.data_ptr(),
-              B, F, S, rounds, iters, float(chi2_th),
-              _cuda.stream_handle(pts))
+    code = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in out),
+              B, F, S, rounds, iters, float(chi2_th), _cuda.stream_handle(pts))
     _cuda.check(code, "pose_lm")
-    return T_out, inl_out, cost_out, nin_out
+    return out
 
 
-def solve_pose_multi_lr(cam_left, cam_right, T_inits, points, uv_l, uv_r,
-                        valid_l, valid_r, *, chi2_th: float = 5.991,
-                        rounds: int = 4, iters: int = 10):
+def solve_pose_multi_lr(camp, T_inits, points, uv_l, uv_r, valid_l, valid_r,
+                        *, chi2_th: float = 5.991, rounds: int = 4,
+                        iters: int = 10):
     """Fused multi-start stereo pose solve, for one stream or a leading axis
     of B streams (one launch either way).
 
-    T_inits ([B,] S, 3, 4); points ([B,] F, 3); uv_l / uv_r ([B,] F, 2);
-    valid_l / valid_r ([B,] F) bool. Returns (T ([B,] 3, 4), inlier ([B,]
-    2F) bool [left; right], num_inliers ([B,]) int32 counting the left
+    camp: the rig's `camera_block`. T_inits ([B,] S, 3, 4); points ([B,] F,
+    3); uv_l / uv_r ([B,] F, 2); valid_l / valid_r ([B,] F) bool; float32
+    and contiguous on the card. Returns (T ([B,] 3, 4), inlier ([B,] 2F)
+    bool [left; right], num_inliers ([B,]) int32 counting the left
     half)."""
-    f32 = torch.float32
-    camp = torch.stack([cam_params(cam_left), cam_params(cam_right)])
-    uv = torch.cat([uv_l, uv_r], dim=-1).to(f32).contiguous()
-    valid = torch.stack([valid_l, valid_r], dim=-1).to(f32).contiguous()
-    T_all, inl_all, cost, _ = pose_lm(
-        camp.contiguous(), points.to(f32).contiguous(), uv, valid,
-        T_inits.to(f32).contiguous(), chi2_th=chi2_th, rounds=rounds,
-        iters=iters)
-    best = torch.argmin(cost, dim=-1, keepdim=True)          # ([B,] 1)
-    T = torch.take_along_dim(T_all, best[..., None, None], dim=-3)[..., 0,
-                                                                   :, :]
-    inl = torch.take_along_dim(inl_all, best[..., None, None],
-                               dim=-3)[..., 0, :, :] > 0.5    # ([B,] 2, F)
-    inlier = torch.cat([inl[..., 0, :], inl[..., 1, :]], dim=-1)
-    return T, inlier, inl[..., 0, :].sum(dim=-1).to(torch.int32)
+    out = pose_lm(camp, points, uv_l, uv_r, valid_l, valid_r, T_inits,
+                  chi2_th=chi2_th, rounds=rounds, iters=iters)
+    return out.T, out.inlier, out.n_inliers

@@ -26,6 +26,7 @@ import torch
 
 from stereovision_slam_torch.device import resolve_device
 from stereovision_slam_torch.ops import image as imops
+from stereovision_slam_torch.ops.pose_kernel import camera_block
 from stereovision_slam_torch.slam import frontend as fe
 from stereovision_slam_torch.slam import map_state as mapmod
 from stereovision_slam_torch.slam.backend import optimize_window
@@ -77,19 +78,20 @@ def batched_staggered_step(fs, ms, arc, kf_count, left_img, right_img,
                            kf_threshold=80, bad_threshold=20, chi2_th=5.991,
                            backend_on=True, ba_iters=10, ba_max_active=None,
                            m=1, lk_iters=30, pose_rounds=4, pose_iters=10,
-                           fold_tracks=True, pallas_mode="lanes"):
+                           fold_tracks=True, pallas_mode="lanes",
+                           camp=None):
     """Advance B streams one frame, with the keyframe branch on the m
     streams [phase * m % B, + m).
 
     fs / ms / arc: (B, ...) states; kf_count, frame_id: B host ints;
     left_img / right_img (B, H, W). fold_tracks=False tracks stream by
     stream with `frontend.track_step` (the reference's vmapped topology);
-    pallas_mode is `track_step_serving`'s. Returns (fs, ms, arc, kf_count,
-    FrameOutputs) with (B, ...) outputs."""
+    pallas_mode and camp are `track_step_serving`'s. Returns (fs, ms, arc,
+    kf_count, FrameOutputs) with (B, ...) outputs."""
     B = left_img.shape[0]
     pyrs, right_pyrs = _split_pyramids(left_img, right_img, num_levels)
     track_kw = dict(chi2_th=chi2_th, rounds=pose_rounds, iters=pose_iters,
-                    lk_iters=lk_iters)
+                    lk_iters=lk_iters, camp=camp)
     if fold_tracks:
         fs, n_in, n_tracked = fe.track_step_serving(
             fs, ms, pyrs, cam_left, right_pyrs, cam_right,
@@ -209,6 +211,7 @@ class BatchedFusedVisualOdometry:
         ds0 = self.datasets[0]
         self.cam_left = ds0.get_camera(ds0.left_cam_index).to(dev)
         self.cam_right = ds0.get_camera(ds0.right_cam_index).to(dev)
+        self.camp = camera_block(self.cam_left, self.cam_right)
         fs_list, ms_list, fids = [], [], []
         for b, ds in enumerate(self.datasets):
             frame = ds.next_frame()
@@ -281,10 +284,10 @@ class BatchedFusedVisualOdometry:
         if self.kf_stagger > 1:
             res = batched_staggered_step(
                 *state, self._step_idx % self.kf_stagger, self.cam_left,
-                self.cam_right, **self._statics())
+                self.cam_right, camp=self.camp, **self._statics())
         else:
             res = batched_fused_step(*state, self.cam_left, self.cam_right,
-                                     **self._statics())
+                                     camp=self.camp, **self._statics())
         self.fs, self.ms, self.arc, self.kf_count, out = res
         self._step_idx += 1
         self._steps.append(_Step(fids, list(self._alive), out))

@@ -22,7 +22,8 @@ import torch
 from stereovision_slam_torch.geometry import jacobians, se3, triangulation
 from stereovision_slam_torch.geometry.camera import Camera, pixel2camera
 from stereovision_slam_torch.ops import gftt, lk
-from stereovision_slam_torch.ops.pose_kernel import solve_pose_multi_lr
+from stereovision_slam_torch.ops.pose_kernel import (camera_block,
+                                                      solve_pose_multi_lr)
 from stereovision_slam_torch.slam import map_state as mapmod
 from stereovision_slam_torch.slam.pose_solver import solve_pose_multi
 
@@ -80,9 +81,11 @@ def track_step_serving(fs: FrontendState, m: mapmod.MapState, cur_pyr,
                        cam_left: Camera, cur_right_pyr, cam_right: Camera, *,
                        chi2_th: float = 5.991, rounds: int = 4,
                        iters: int = 10, lk_iters: int = 30,
-                       pallas_mode: str = "lanes"):
+                       pallas_mode: str = "lanes", camp=None):
     """The tracking step over B streams at once: state and map with a
     leading (B, ...) axis, pyramid levels (B, H, W), shared cameras.
+    `camp` is the rig's `camera_block` for kernel B (built from the cameras
+    when None; the VO loops build it once).
 
     The two LK solves fold every stream into one call per level (G = B
     groups, then G = 2B for the anchored refinement and the right-image
@@ -125,8 +128,10 @@ def track_step_serving(fs: FrontendState, m: mapmod.MapState, cur_pyr,
     use = tracked & linked
     use_r = use & status_r
     if pallas_mode in ("lanes", "pallas"):
-        T_new, inlier2, _ = solve_pose_multi_lr(
-            cam_left, cam_right, T_inits, lm_pos, cur_uv, uv_r, use, use_r,
+        if camp is None:
+            camp = camera_block(cam_left, cam_right)
+        T_new, inlier2, num_inliers = solve_pose_multi_lr(
+            camp, T_inits, lm_pos, cur_uv, uv_r, use, use_r,
             chi2_th=chi2_th, rounds=rounds, iters=iters)
     else:
         cam_obs = _blend_obs_cameras(cam_left, cam_right, F, F)
@@ -136,8 +141,8 @@ def track_step_serving(fs: FrontendState, m: mapmod.MapState, cur_pyr,
             chi2_th=chi2_th, rounds=rounds, iters=iters) for b in range(B)]
         T_new = torch.stack([s[0] for s in solved])
         inlier2 = torch.stack([s[1] for s in solved])
+        num_inliers = inlier2[:, :F].sum(dim=1).to(torch.int32)
     inlier = inlier2[:, :F]
-    num_inliers = inlier.sum(dim=1).to(torch.int32)
     feat_lm = torch.where(tracked & ~(use & ~inlier), fs.feat_lm,
                           torch.full_like(fs.feat_lm, -1))
     fs_new = FrontendState(
@@ -151,7 +156,7 @@ def track_step_serving(fs: FrontendState, m: mapmod.MapState, cur_pyr,
 def track_step(fs: FrontendState, m: mapmod.MapState, cur_pyr,
                cam_left: Camera, cur_right_pyr, cam_right: Camera,
                chi2_th: float = 5.991, rounds: int = 4, iters: int = 10,
-               lk_iters: int = 30):
+               lk_iters: int = 30, camp=None):
     """Track last-frame features into the current frame and solve the pose:
     `track_step_serving` on the lanes route for one stream (the same
     kernel launches). Returns (new_state, num_inliers, num_tracked) as 0-d
@@ -161,7 +166,8 @@ def track_step(fs: FrontendState, m: mapmod.MapState, cur_pyr,
     fs1, n_in, n_tr = track_step_serving(
         FrontendState(*map(one, fs)), mapmod.MapState(*map(one, m)),
         one(tuple(cur_pyr)), cam_left, one(tuple(cur_right_pyr)), cam_right,
-        chi2_th=chi2_th, rounds=rounds, iters=iters, lk_iters=lk_iters)
+        chi2_th=chi2_th, rounds=rounds, iters=iters, lk_iters=lk_iters,
+        camp=camp)
     fs_new = FrontendState(*(tuple(lv[0] for lv in x) if isinstance(x, tuple)
                              else x[0] for x in fs1))
     return fs_new, n_in[0], n_tr[0]

@@ -26,6 +26,7 @@ import torch
 from stereovision_slam_torch.device import resolve_device
 from stereovision_slam_torch.geometry import se3
 from stereovision_slam_torch.ops import image as imops
+from stereovision_slam_torch.ops.pose_kernel import camera_block
 from stereovision_slam_torch.slam import frontend as fe
 from stereovision_slam_torch.slam import map_state as mapmod
 from stereovision_slam_torch.slam.backend import optimize_window
@@ -140,12 +141,13 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
                ba_iters: int = 10, num_features_init: int = 50,
                ba_max_active: int | None = 1024,
                lk_iters: int = 30, pose_rounds: int = 4, pose_iters: int = 10,
-               ba_every: int = 1, lost_recovery: bool = True):
+               ba_every: int = 1, lost_recovery: bool = True, camp=None):
     """One SLAM frame. `kf_count` < 0 marks an uninitialized map (the frame
     then runs stereo initialization). `lost_recovery=False` leaves a LOST
     frame on the tracking branch (no keyframe) instead of re-initializing,
-    as `batched.batched_fused_step` asks. Returns (fs, ms, arc, kf_count,
-    FrameOutputs)."""
+    as `batched.batched_fused_step` asks. `camp`: the rig's
+    `pose_kernel.camera_block`, as `frontend.track_step` takes it. Returns
+    (fs, ms, arc, kf_count, FrameOutputs)."""
     both = imops.build_pyramid_batched(torch.stack([left_img, right_img]),
                                        num_levels)
     pyr = tuple(lv[0] for lv in both)
@@ -178,7 +180,7 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
 
     fs1, n_in, n_tracked = fe.track_step(
         fs, ms, pyr, cam_left, right_pyr, cam_right, chi2_th=chi2_th,
-        rounds=pose_rounds, iters=pose_iters, lk_iters=lk_iters)
+        rounds=pose_rounds, iters=pose_iters, lk_iters=lk_iters, camp=camp)
     n_in_host = int(n_in)
     lost = n_in_host <= bad_threshold
     want_kf = n_in_host < kf_threshold and not lost
@@ -252,6 +254,7 @@ class FusedVisualOdometry:
             self.dataset.left_cam_index).to(dev)
         self.cam_right = self.dataset.get_camera(
             self.dataset.right_cam_index).to(dev)
+        self.camp = camera_block(self.cam_left, self.cam_right)
         cfg = self.cfg
         self.ms = mapmod.empty_map(cfg.max_keyframes_window, cfg.max_features,
                                    cfg.max_landmarks, device=dev)
@@ -293,7 +296,7 @@ class FusedVisualOdometry:
         self.fs, self.ms, self.arc, self.kf_count, out = fused_step(
             self.fs, self.ms, self.arc, self.kf_count, left, right,
             int(frame.frame_id), self.cam_left, self.cam_right,
-            **self._statics())
+            camp=self.camp, **self._statics())
         self._fids.append(int(frame.frame_id))
         self._outs.append(out)
         return True

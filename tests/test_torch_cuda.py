@@ -84,34 +84,96 @@ def test_lk_level_kernel_matches_plain(dev):
                     torch.stack([valid, valid]),), **kw)
 
 
-def test_pose_kernel_matches_plain(dev):
-    rng = np.random.default_rng(0)
+def _pose_streams(dev, B, S, F=200, seed=0):
+    """Kernel B's inputs for B streams of F points (not a multiple of the
+    kernel's 128 threads per start) with pixel noise and gross outliers,
+    and S starts around each stream's pose: start 1 half a turn about y
+    (every point behind the cameras, no valid residual), start 2 a copy of
+    start 0 (their costs tie)."""
+    rng = np.random.default_rng(seed)
     left, right = (c.to(dev) for c in scenes.make_stereo_rig())
-    T_gt = se3.se3_exp(torch.tensor([0.3, -0.1, 0.5, 0.02, -0.03, 0.01],
-                                    device=dev))
-    F = 256
-    pts = torch.tensor(np.c_[rng.uniform(-8, 8, (F, 1)), rng.uniform(
-        -3, 3, (F, 1)), rng.uniform(6, 40, (F, 1))], dtype=torch.float32,
-        device=dev)
-    uv = torch.cat([jacobians.project_points(c, T_gt, pts)[0]
-                    for c in (left, right)], 1)
-    uv = uv + torch.tensor(rng.normal(0, 0.3, (F, 4)), dtype=torch.float32,
-                           device=dev)
-    uv[:10, 0] += 30.0
-    valid = torch.tensor(rng.uniform(size=(F, 2)) > 0.1, device=dev).float()
-    T0 = torch.stack([T_gt, se3.se3_identity(device=dev),
-                      se3.se3_compose(se3.se3_exp(torch.full(
-                          (6,), 0.02, device=dev)), T_gt)])
-    camp = torch.stack([pk.cam_params(left), pk.cam_params(right)])
-    args = (camp.contiguous(), pts, uv.contiguous(), valid.contiguous(),
-            T0.contiguous())
+    T_gt = se3.se3_exp(torch.tensor(rng.normal(0, [0.3, 0.1, 0.3, 0.02, 0.03,
+                                                   0.02], (B, 6)),
+                                    dtype=torch.float32, device=dev))
+    pts = torch.tensor(np.stack([rng.uniform(-8, 8, (B, F)),
+                                 rng.uniform(-3, 3, (B, F)),
+                                 rng.uniform(6, 40, (B, F))], -1),
+                       dtype=torch.float32, device=dev)
+    uv_l, uv_r = (jacobians.project_points(c, T_gt[:, None], pts)[0]
+                  + torch.tensor(rng.normal(0, 0.3, (B, F, 2)),
+                                 dtype=torch.float32, device=dev)
+                  for c in (left, right))
+    uv_l[:, :10] += 30.0
+    vl = torch.tensor(rng.uniform(size=(B, F)) > 0.1, device=dev)
+    vr = vl & torch.tensor(rng.uniform(size=(B, F)) > 0.1, device=dev)
+    d = torch.tensor(rng.normal(0, 0.05, (B, S, 6)), dtype=torch.float32,
+                     device=dev)
+    d[:, 1] = torch.tensor([0.0, 0.0, 0.0, 0.0, np.pi, 0.0], device=dev)
+    d[:, 2] = d[:, 0]
+    T0 = se3.se3_compose(se3.se3_exp(d), T_gt[:, None])
+    return (pk.camera_block(left, right), pts.contiguous(),
+            uv_l.contiguous(), uv_r.contiguous(), vl, vr, T0.contiguous())
+
+
+@pytest.mark.parametrize("B,S", [(1, 3), (4, 3), (1, 8)])
+def test_pose_kernel_matches_plain(dev, B, S):
+    """Kernel B against its plain version on every (stream, start), after
+    one LM step (the starts still apart) and after 3 x 6: T within 1e-4,
+    inliers equal, costs within 1e-4; a start with no point in front of the
+    cameras keeps no inlier; of two tied starts the first is chosen, and the
+    chosen outputs are the kernel's own per-start outputs there."""
+    args = _pose_streams(dev, B, S)
+    for kw in (dict(rounds=1, iters=1), dict(rounds=3, iters=6)):
+        k = pk.pose_lm(*args, chi2_th=5.991, **kw)
+        p = pk.pose_lm_plain(*args, chi2_th=5.991, **kw)
+        assert k.T_all.shape == (B, S, 3, 4) and k.inlier.shape == (B, 400)
+        torch.testing.assert_close(k.T_all, p.T_all, rtol=0, atol=1e-4)
+        assert torch.equal(k.inl_all, p.inl_all)
+        torch.testing.assert_close(k.cost, p.cost, rtol=1e-4, atol=1e-3)
+        assert not bool(k.inl_all[:, 1].any())
+        assert torch.equal(k.cost[:, 0], k.cost[:, 2])
+        best = torch.argmin(k.cost, dim=-1)
+        assert not bool((best == 2).any())
+        rows = torch.arange(B, device=dev)
+        assert torch.equal(k.T, k.T_all[rows, best])
+        assert torch.equal(k.inlier, k.inl_all[rows, best].reshape(B, -1))
+        assert torch.equal(k.n_inliers,
+                           k.inl_all[rows, best, 0].sum(-1).int())
+        torch.testing.assert_close(k.T, p.T, rtol=0, atol=1e-4)
+
+
+def test_pose_kernel_over_streams_matches_plain(dev):
+    """B = 2 streams x S = 3 starts in one launch, held as above."""
+    test_pose_kernel_matches_plain(dev, 2, 3)
+
+
+def test_solve_pose_multi_lr_is_one_launch(dev):
+    """One `solve_pose_multi_lr` call at the slice's shape is one kernel B
+    launch and waits for nothing (sync debug mode); S > 8 starts, more than
+    MAX_POINTS points and no round are refused."""
+    camp, pts, uv_l, uv_r, vl, vr, T0 = (
+        x[0] if i else x for i, x in enumerate(_pose_streams(dev, 1, 3, 256)))
     kw = dict(chi2_th=5.991, rounds=3, iters=6)
-    Tk, ik, ck, _ = pk.pose_lm(*args, **kw)
-    Tp, ip, cp, _ = pk.pose_lm_plain(*args, **kw)
-    best = int(torch.argmin(cp))
-    torch.testing.assert_close(Tk[best], Tp[best], rtol=0, atol=1e-4)
-    assert torch.equal(ik[best], ip[best])
-    torch.testing.assert_close(ck, cp, rtol=1e-4, atol=1e-3)
+    before = pk.launch_count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T, inl, n = pk.solve_pose_multi_lr(camp, T0, pts, uv_l, uv_r, vl, vr,
+                                           **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pk.launch_count == before + 1
+    assert T.shape == (3, 4) and inl.shape == (512,) and inl.dtype == torch.bool
+    assert n.dtype == torch.int32 and int(n) == int(inl[:256].sum()) > 150
+    many = se3.se3_identity(device=dev).expand(pk.MAX_STARTS + 1, 3, 4)
+    with pytest.raises(ValueError):
+        pk.solve_pose_multi_lr(camp, many.contiguous(), pts, uv_l, uv_r, vl,
+                               vr, **kw)
+    with pytest.raises(ValueError):
+        pk.pose_lm(camp, pts, uv_l, uv_r, vl, vr, T0, chi2_th=5.991,
+                   rounds=0, iters=6)
+    with pytest.raises(ValueError):      # the valid masks as float
+        pk.pose_lm(camp, pts, uv_l, uv_r, vl.float(), vr, T0, **kw)
+    assert pk.launch_count == before + 1
 
 
 def _record(monkeypatch, module, name):
@@ -150,39 +212,75 @@ def test_lk_iterate_and_gather_kernels_match_plain(dev, monkeypatch):
         torch.testing.assert_close(k[:, :2], p[:, :2], rtol=0, atol=1e-3)
 
 
-def test_pose_kernel_over_streams_matches_plain(dev):
-    """B = 2 streams x S = 3 starts in one launch: every (b, s) against the
-    plain version after one LM step (the starts still apart) and at the
-    end, within 1e-4."""
-    rng = np.random.default_rng(1)
-    left, right = (c.to(dev) for c in scenes.make_stereo_rig())
-    camp = torch.stack([pk.cam_params(left), pk.cam_params(right)])
-    F, B = 200, 2
-    pts = torch.tensor(np.c_[rng.uniform(-8, 8, (B, F, 1)), rng.uniform(
-        -3, 3, (B, F, 1)), rng.uniform(6, 40, (B, F, 1))],
-        dtype=torch.float32, device=dev)
-    pts = pts.reshape(B, F, 3)
-    T_gt = se3.se3_exp(torch.tensor([[0.3, -0.1, 0.5, 0.02, -0.03, 0.01],
-                                     [-0.2, 0.1, 0.3, 0.0, 0.02, -0.01]],
-                                    device=dev))
-    uv = torch.cat([jacobians.project_points(c, T_gt[:, None], pts)[0]
-                    for c in (left, right)], -1)
-    uv = uv + torch.tensor(rng.normal(0, 0.3, (B, F, 4)),
-                           dtype=torch.float32, device=dev)
-    valid = torch.tensor(rng.uniform(size=(B, F, 2)) > 0.1,
-                         device=dev).float()
-    d = torch.tensor(rng.normal(0, 0.05, (B, 3, 6)), dtype=torch.float32,
-                     device=dev)
-    T0 = se3.se3_compose(se3.se3_exp(d), T_gt[:, None])
-    args = (camp.contiguous(), pts.contiguous(), uv.contiguous(),
-            valid.contiguous(), T0.contiguous())
-    for kw in (dict(rounds=1, iters=1), dict(rounds=3, iters=6)):
-        Tk, ik, ck, _ = pk.pose_lm(*args, chi2_th=5.991, **kw)
-        Tp, ip, cp, _ = pk.pose_lm_plain(*args, chi2_th=5.991, **kw)
-        assert Tk.shape == (B, 3, 3, 4)
-        torch.testing.assert_close(Tk, Tp, rtol=0, atol=1e-4)
-        assert torch.equal(ik, ip)
-        torch.testing.assert_close(ck, cp, rtol=1e-4, atol=1e-3)
+def _window_inputs(dev, win):
+    """Kernel C's inputs on the circuit's first frame against a blend of two
+    shifted copies of it (about 1.5 px right and 0.5 px up), edge-padded as
+    `lk.track` pads a level, for
+    patch size `win`: 256 GFTT corners with guesses up to 2 px off, eight
+    of them 6 px off at their window's left edge (they leave it), two
+    unsolvable, four frozen slots, two of them with NaN guesses."""
+    rng = np.random.default_rng(win)
+    lefts, _, _, _, _ = scenes.circuit(device=dev)
+    prev_img = torch.as_tensor(lefts[0], device=dev)
+    cur_img = 0.5 * (torch.roll(prev_img, (-1, 1), (0, 1))
+                     + torch.roll(prev_img, (0, 2), (0, 1)))
+    pts, _, _ = gftt.detect(prev_img, 256)
+    S, pad, half = win + 1, win // 2 + 2, (win - 1) / 2.0
+    P = S + 2 * lk_iterate.WINDOW_MARGIN
+    prev, cur = (torch.nn.functional.pad(im[None, None], (pad,) * 4,
+                                         mode="replicate")[0, 0]
+                 for im in (prev_img, cur_img))
+    H, W = prev.shape
+    p = pts + pad
+    n = p.shape[0]
+    ix, iy = imops.scharr_gradients(prev)
+    (tmpl, gx, gy), _ = imops.sample_patches_multi(
+        torch.stack([prev, ix, iy]), p, win)
+    gf, hf = gx.reshape(n, -1), gy.reshape(n, -1)
+    gxx, gxy, gyy = (gf * gf).sum(1), (gf * hf).sum(1), (hf * hf).sum(1)
+    det = gxx * gyy - gxy * gxy
+    det_safe = torch.where(det > 1e-12, det, torch.ones_like(det))
+    solvable = det > 1e-12
+    solvable[8:10] = False
+    guesses = p + torch.tensor(rng.uniform(-2, 2, (n, 2)),
+                               dtype=torch.float32, device=dev)
+    guesses[:8] = p[:8] + torch.tensor([6.0, 0.0], device=dev)
+    frozen0 = torch.zeros(n, dtype=torch.bool, device=dev)
+    frozen0[-4:] = True
+    guesses[-2:] = float("nan")
+    corner = imops.floor_int(guesses - half) - lk_iterate.WINDOW_MARGIN
+    corner[:8, 0] += lk_iterate.WINDOW_MARGIN - 1   # 1 px from the left edge
+    corner = torch.stack([corner[:, 0].clamp(0, W - P),
+                          corner[:, 1].clamp(0, H - P)], 1)
+    wins = gather.gather_windows(cur[None], torch.zeros(n, dtype=torch.int32,
+                                                        device=dev),
+                                 corner[:, 1].int(), corner[:, 0].int(), P)
+    args = (wins, tmpl.contiguous(), gx.contiguous(), gy.contiguous(),
+            torch.stack([gxx, gxy, gyy, det_safe], 1),
+            torch.stack([solvable, frozen0], 1).float(), guesses.contiguous(),
+            corner.float().contiguous())
+    return args, dict(S=S, P=P, max_iters=30, eps=0.01, W=W, H=H)
+
+
+@pytest.mark.parametrize("win", [7, 11])
+def test_lk_iterate_kernel_edge_cases_bit_equal(dev, win):
+    """Kernel C against its plain version, bit for bit (NaN slots
+    included), at patch sizes 7 and 11: points that leave their window,
+    unsolvable points, frozen and NaN slots; one call is one launch."""
+    args, kw = _window_inputs(dev, win)
+    before = lk_iterate.launch_count
+    k = lk_iterate.lk_iterate(*args, **kw)
+    assert lk_iterate.launch_count == before + 1
+    p = lk_iterate.lk_iterate_plain(*args, **kw)
+    torch.testing.assert_close(k, p, rtol=0, atol=0, equal_nan=True)
+    live = ~args[5][:, 1].bool()
+    assert int((k[live, 3] > 0.5).sum()) >= 4           # left the window
+    assert bool((k[8:10, 2] > 0.5).all() and (k[8:10, 4] == 1).all())
+    assert int(((k[live, 3] < 0.5) & (k[live, 2] > 0.5)).sum()) >= 100
+    assert bool(torch.isnan(k[-2:, :2]).all() and (k[-4:, 4] == 0).all())
+    with pytest.raises(ValueError):      # a window the kernel does not take
+        lk_iterate.lk_iterate(args[0][:, :-1, :-1].contiguous(), *args[1:],
+                              **dict(kw, P=kw["P"] - 1))
 
 
 def test_wrappers_check_their_inputs(dev):
@@ -202,11 +300,14 @@ def test_wrappers_check_their_inputs(dev):
         tiny = [torch.zeros((1, 8 >> k, 60 >> k), device=dev)
                 for k in range(4)]
         lk_lanes.lk_pyramid(tiny, tiny, pts, pts, masks)
+    F = pk.MAX_POINTS + 1
     with pytest.raises(ValueError):
         pk.pose_lm(torch.zeros((2, 16), device=dev),
-                   torch.zeros((pk.MAX_POINTS + 1, 3), device=dev),
-                   torch.zeros((pk.MAX_POINTS + 1, 4), device=dev),
-                   torch.zeros((pk.MAX_POINTS + 1, 2), device=dev),
+                   torch.zeros((F, 3), device=dev),
+                   torch.zeros((F, 2), device=dev),
+                   torch.zeros((F, 2), device=dev),
+                   torch.zeros(F, dtype=torch.bool, device=dev),
+                   torch.zeros(F, dtype=torch.bool, device=dev),
                    torch.zeros((1, 3, 4), device=dev), chi2_th=5.991,
                    rounds=3, iters=6)
     ma = (("dp", 4), ("mp", 2))

@@ -18,6 +18,7 @@ from stereovision_slam_tpu.geometry import se3 as jse3
 from stereovision_slam_tpu.geometry.camera import Camera as JCamera
 from stereovision_slam_tpu.ops.pose_pallas import solve_pose_multi_lr as jlr
 from stereovision_slam_torch import convert
+from stereovision_slam_torch.ops import pose_kernel as pk
 from stereovision_slam_torch.ops.pose_kernel import solve_pose_multi_lr as tlr
 
 
@@ -63,7 +64,8 @@ def test_plain_kernel_matches_interpreted_kernel(seed):
                      jnp.asarray(vr), chi2_th=5.991, rounds=3, iters=6,
                      interpret=True)
     tc = [convert.camera(c) for c in cams]
-    Tt, it, nt = tlr(tc[0], tc[1], *_torch(T_inits, pts, uv_l, uv_r, vl, vr),
+    Tt, it, nt = tlr(pk.camera_block(*tc),
+                     *_torch(T_inits, pts, uv_l, uv_r, vl, vr),
                      chi2_th=5.991, rounds=3, iters=6)
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-4)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
@@ -84,9 +86,36 @@ def test_plain_kernel_masks_and_degenerate():
                     jnp.asarray(vr), chi2_th=5.991, rounds=3, iters=6,
                     interpret=True)
     tc = [convert.camera(c) for c in cams]
-    Tt, it, _ = tlr(tc[0], tc[1], *_torch(T_inits, pts, uv_l, uv_r, vl, vr),
+    Tt, it, _ = tlr(pk.camera_block(*tc),
+                    *_torch(T_inits, pts, uv_l, uv_r, vl, vr),
                     chi2_th=5.991, rounds=3, iters=6)
     assert torch.isfinite(Tt).all()
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-4)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     assert not bool(it[0])
+
+
+def test_chosen_start_of_tied_starts_matches_reference():
+    """Starts 1 and 2 are the same pose and tie at the least cost: the
+    first of them is chosen. The port's chosen outputs are its per-start
+    outputs at that index (pose, [left; right] inliers, left inlier count)
+    and agree with the reference's as the tests above hold them."""
+    cams, T_gt, pts, uv_l, uv_r, vl, vr, T_inits = _problem(seed=1)
+    T_inits = np.array(T_inits)
+    T_inits[2] = T_inits[1]
+    Tj, ij, nj = jlr(cams[0], cams[1], jnp.asarray(T_inits), jnp.asarray(pts),
+                     jnp.asarray(uv_l), jnp.asarray(uv_r), jnp.asarray(vl),
+                     jnp.asarray(vr), chi2_th=5.991, rounds=3, iters=6,
+                     interpret=True)
+    tc = [convert.camera(c) for c in cams]
+    out = pk.pose_lm(pk.camera_block(*tc),
+                     *_torch(pts, uv_l, uv_r, vl, vr, T_inits),
+                     chi2_th=5.991, rounds=3, iters=6)
+    assert float(out.cost[1]) == float(out.cost[2]) < float(out.cost[0])
+    best = 1
+    assert torch.equal(out.T, out.T_all[best])
+    assert torch.equal(out.inlier, out.inl_all[best].reshape(-1))
+    assert int(out.n_inliers) == int(out.inl_all[best, 0].sum())
+    np.testing.assert_allclose(out.T.numpy(), np.asarray(Tj), atol=1e-4)
+    np.testing.assert_array_equal(out.inlier.numpy(), np.asarray(ij))
+    assert int(out.n_inliers) == int(nj)

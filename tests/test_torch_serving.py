@@ -87,11 +87,8 @@ def test_lu_pose_solver_matches_reference():
 
 def test_pose_kernel_plain_over_streams_equals_loop():
     probs = [_problem(seed=s) for s in range(3)]
-    camp = torch.stack([pk.cam_params(convert.camera(c))
-                        for c in probs[0][0]])
-    args = [tuple(convert.tensor(x) for x in (
-        p[2], np.concatenate([p[3], p[4]], 1),
-        np.stack([p[5], p[6]], 1).astype(np.float32), p[7])) for p in probs]
+    camp = pk.camera_block(*(convert.camera(c) for c in probs[0][0]))
+    args = [tuple(convert.tensor(x) for x in p[2:8]) for p in probs]
     kw = dict(chi2_th=5.991, rounds=3, iters=6)
     batched = pk.pose_lm_plain(camp, *(torch.stack(a) for a in zip(*args)),
                                **kw)
@@ -100,16 +97,14 @@ def test_pose_kernel_plain_over_streams_equals_loop():
             assert torch.equal(got[b], want)
     # the pose entry point picks each stream's best start
     T, inl, n = pk.solve_pose_multi_lr(
-        *(convert.camera(c) for c in probs[0][0]),
-        *(convert.tensor(np.stack(x)) for x in (
+        camp, *(convert.tensor(np.stack(x)) for x in (
             [p[7] for p in probs], [p[2] for p in probs],
             [p[3] for p in probs], [p[4] for p in probs],
             [p[5] for p in probs], [p[6] for p in probs])), **kw)
     for b, p in enumerate(probs):
         Tb, ib, nb = pk.solve_pose_multi_lr(
-            *(convert.camera(c) for c in p[0]),
-            *(convert.tensor(x) for x in (p[7], p[2], p[3], p[4], p[5],
-                                          p[6])), **kw)
+            camp, *(convert.tensor(x) for x in (p[7], p[2], p[3], p[4],
+                                                p[5], p[6])), **kw)
         assert torch.equal(T[b], Tb) and torch.equal(inl[b], ib)
         assert int(n[b]) == int(nb)
 
