@@ -54,8 +54,21 @@ Phases, in order; any failure exits non-zero:
      truth, one with rank-deficient information) through
      `optimize_pose_graph` and `build_sharded_pgo` (8 ranks) on the card.
 
-The last lines are the kernel table (JSON), the nvidia-smi line, and
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+ 13. the bench's main path, loop closure included: the circuit, then the
+     480-frame multi-lap circuit (`scenes.circuit_long`), through
+     `FusedLoopVisualOdometry` on "cuda" with the bench's settings,
+     `PLACENET_LOOP_GATES` and the shipped PlaceNet weights (tracking,
+     keyframes, BA, the keyframe hook: embedding, candidate scan, ORB
+     descriptors, Hamming match, PnP RANSAC, LocalFusion; then shutdown
+     PGO); the bench's gates (a loop, ATE after PGO < 2% of the path, PGO
+     no worse than odometry), fps, the hook's host reads, the launch
+     counters against the frame and keyframe counts, and every kernel A and
+     B launch of the phase held to its plain version after the run.
+
+Phases 2, 3 and 6 also check the sizes the kernels once refused (kernel
+A's windows 21 and 31, kernel B at 2048 points, kernel C's patch 21) and
+time them. The last lines are the kernel table (JSON), the nvidia-smi
+line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -79,6 +92,14 @@ POSE_T_TOL = 1e-3        # max |T_kernel - T_plain|, every start and the chosen
 POSE_INLIER_AGREE = 0.99  # share of equal inlier flags, every start
 POSE_COST_TOL = 1e-4     # relative robust-cost difference, every start
 POSE_STEP_TOL = 1e-4     # max |T_kernel - T_plain| after one LM step
+# a path launch over POSE_T_TOL is replayed: the plain version takes the
+# kernel's decisions (`follow`) and is held to POSE_T_TOL again, and each of
+# its own decisions that differs must be a float32 tie: an acceptance whose
+# two costs are within POSE_ACC_TIE of each other (relative; a sum of a few
+# hundred float32 terms is good to ~1e-6 of it), an inlier whose chi2 is
+# within POSE_LEVEL_TIE of the threshold (relative)
+POSE_ACC_TIE = 1e-5
+POSE_LEVEL_TIE = 1e-3
 # the slice is chaotic: rounding differences between the CPU and the card
 # (sum orders, BA's scatter atomics) flip LM acceptances and BA outlier
 # decisions, and the poses drift apart at a fraction of the trajectory error;
@@ -129,6 +150,10 @@ SHARD_RING_TOL = (1e-5, 1e-4, 1e-4 / 45)
 SHARD_SINGLE_TOL = (5e-3, 5e-2, 5e-2 / 45)
 SHARD_CPU_TOL = (1e-4, 1e-4, 1e-4)
 PGO_SHARD_TOL = 5e-2     # tests/test_sharded_pgo.py:30-31
+# sizes the kernels once refused (kernel A's window above 15, kernel C's
+# patch above 11, kernel B's points above 1024), checked in phases 2, 3, 6
+WIDE_WINS, WIDE_R, WIDE_F = (21, 31), 21, 2048
+LONG_T = 480     # the bench's multi-lap circuit (benchmarks/render_scene.py)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -323,37 +348,10 @@ def check_lk(rendered, dev):
           torch.stack([valid, valid & st_a[0]]))
     err, rows_by_call = 0.0, {}
     for label, args in (("G=1", g1), ("G=2", g2)):
-        uv, st, rows = lk_lanes.lk_pyramid(*args, **kw)
-        replay = lk_lanes.replay_levels(*args, rows, **kw)
-        uv_p, st_p = lk_lanes.track_grouped_lanes(
-            *args, level_fn=lk_lanes.lk_level_plain, **kw)
-        torch.cuda.synchronize()
-        rows_by_call[label] = (args, rows)
-        for level in range(len(rows) - 1, -1, -1):
-            k, p = rows[level], replay[level]
-            flags_eq = (k[:, 2:5] == p[:, 2:5]).all(dim=1)
-            e = (k[:, :2] - p[:, :2]).abs().amax(dim=1)
-            e = e[flags_eq & torch.isfinite(e)]
-            agree = float(flags_eq.float().mean())
-            e = float(e.max()) if e.numel() else 0.0
-            err = max(err, e)
-            print(f"kernel A {label} level {level} (n={k.shape[0]}): flags "
-                  f"agree {agree:.4f}, max pos err {e:.3e} px")
-            check(agree >= LK_FLAG_AGREE and e <= LK_POS_TOL,
-                  f"kernel A {label} level {level} disagrees with its plain "
-                  f"version: {agree}, {e}")
-        agree = float((st == st_p).float().mean())
-        both = st & st_p
-        e = float((uv - uv_p).abs()[both].max()) if bool(both.any()) else 0.0
+        e, rows = hold_lk_call(label, args, kw)
         err = max(err, e)
-        print(f"kernel A {label} whole call: status agrees on {agree:.4f} of "
-              f"the points ({int(st.sum())} / {int(st_p.sum())} tracked), "
-              f"max pos err {e:.3e} px where both track")
-        check(agree >= LK_FLAG_AGREE and e <= LK_POS_TOL,
-              f"kernel A's {label} call disagrees with the plain level "
-              f"loop: {agree}, {e}")
+        rows_by_call[label] = (args, rows)
     # one launch per call; the table row is the G = 2 call
-    win = 11
     for label, (args, rows) in rows_by_call.items():
         call = lambda: lk_lanes.lk_pyramid(*args, **kw)
         if label == "G=2":
@@ -361,35 +359,107 @@ def check_lk(rendered, dev):
         ms, dev_ms, wrap_ms = cuda_ms(call, 50), device_ms(call, 50), \
             host_ms(call, 50)
         plain_ms = cuda_ms(lambda: lk_lanes.lk_pyramid_plain(*args, **kw), 3)
-        L, n = rows.shape[:2]
-        # every level's two images read once; points, initial points and
-        # masks in; positions, status and the per-level rows out
-        nbytes = (4 * sum(t.numel() for t in args[0] + args[1])
-                  + n * (4 * 2 + 4 * 2 + 1) + n * (4 * 2 + 1)
-                  + 4 * rows.numel())
-        # per point and level: template and gradients (~95 per pixel), and
-        # per iteration 12 per pixel, as many iterations as this run took
-        flops = (L * n * 95.0 + float(rows[:, :, 5].sum()) * 12.0) * win * win
-        b, by = bound_ms(nbytes, flops)
-        print(f"kernel A {label} (n={n}, {L} levels): {ms:.4f} ms per call "
-              f"back to back (one launch; CUDA events), the kernel alone "
-              f"{dev_ms:.4f} ms, host time {wrap_ms:.4f} ms per call; plain "
-              f"{plain_ms:.3f} ms, bound {b:.6f} ms ({by})")
+        b, by = lk_bound(args, rows, 11)
+        print(f"kernel A {label} (n={rows.shape[1]}, {rows.shape[0]} "
+              f"levels): {ms:.4f} ms per call back to back (one launch; "
+              f"CUDA events), the kernel alone {dev_ms:.4f} ms, host time "
+              f"{wrap_ms:.4f} ms per call; plain {plain_ms:.3f} ms, bound "
+              f"{b:.6f} ms ({by})")
+    # the windows once above kernel A's cap (15): OpenCV's default 21, and
+    # 31, whose warps need more than 48 KB of shared memory; the G = 2 call
+    wide = {}
+    for win in WIDE_WINS:
+        kw_w = dict(kw, win_size=win)
+        e, rows = hold_lk_call(f"G=2 win {win}", g2, kw_w)
+        err = max(err, e)
+        call = lambda: lk_lanes.lk_pyramid(*g2, **kw_w)
+        t = kernel_times(call)
+        t["plain_ms"] = cuda_ms(lambda: lk_lanes.lk_pyramid_plain(*g2, **kw_w),
+                                3)
+        t["bound_ms"], t["bound_by"] = lk_bound(g2, rows, win)
+        wide[f"win{win}"] = t
+        print(f"kernel A G=2 win {win} (n={rows.shape[1]}): {times_line(t)}; "
+              f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']})")
     return dict(name="lk_pyramid", route="cuda",
                 source="stereovision_slam_torch/csrc/lk_pyramid.cu",
                 replaces="stereovision_slam_tpu/ops/lk_lanes.py:112",
                 max_abs_err=err, ms=ms, device_ms=dev_ms, host_ms=wrap_ms,
-                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+                wide=wide)
 
 
-def pose_problem(dev, seed: int = 0):
-    """Kernel B's main-path shape: S = 3 starts, F = 256 points."""
+def lk_bound(args, rows, win: int):
+    """Kernel A's bound for one call: every level's two images read once;
+    points, initial points and masks in; positions, status and the
+    per-level rows out; per point and level the template and gradients
+    (~95 operations a pixel) and 12 a pixel for each iteration this call
+    took."""
+    L, n = rows.shape[:2]
+    nbytes = (4 * sum(t.numel() for t in args[0] + args[1])
+              + n * (4 * 2 + 4 * 2 + 1) + n * (4 * 2 + 1) + 4 * rows.numel())
+    flops = (L * n * 95.0 + float(rows[:, :, 5].sum()) * 12.0) * win * win
+    return bound_ms(nbytes, flops)
+
+
+def lk_level_gaps(rows, replay):
+    """Per level of one kernel A call against its replay: (share of points
+    whose flags agree, largest position error where they agree)."""
+    import torch
+
+    out = []
+    for k, p in zip(rows, replay):
+        flags_eq = (k[:, 2:5] == p[:, 2:5]).all(dim=1)
+        e = (k[:, :2] - p[:, :2]).abs().amax(dim=1)
+        e = e[flags_eq & torch.isfinite(e)]
+        out.append((float(flags_eq.float().mean()),
+                    float(e.max()) if e.numel() else 0.0))
+    return out
+
+
+def hold_lk_call(label: str, args, kw) -> tuple[float, object]:
+    """Kernel A on one call: each level's rows against `lk_level_plain` fed
+    the meta rebuilt from the kernel's rows at the level above
+    (`replay_levels`), and the whole call against the plain level loop.
+    Returns (the largest position error, the kernel's rows)."""
+    import torch
+    from stereovision_slam_torch.ops import lk_lanes
+
+    uv, st, rows = lk_lanes.lk_pyramid(*args, **kw)
+    replay = lk_lanes.replay_levels(*args, rows, **kw)
+    uv_p, st_p = lk_lanes.track_grouped_lanes(
+        *args, level_fn=lk_lanes.lk_level_plain, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for level, (agree, e) in reversed(list(enumerate(lk_level_gaps(
+            rows, replay)))):
+        err = max(err, e)
+        print(f"kernel A {label} level {level} (n={rows.shape[1]}): flags "
+              f"agree {agree:.4f}, max pos err {e:.3e} px")
+        check(agree >= LK_FLAG_AGREE and e <= LK_POS_TOL,
+              f"kernel A {label} level {level} disagrees with its plain "
+              f"version: {agree}, {e}")
+    agree = float((st == st_p).float().mean())
+    both = st & st_p
+    e = float((uv - uv_p).abs()[both].max()) if bool(both.any()) else 0.0
+    err = max(err, e)
+    print(f"kernel A {label} whole call: status agrees on {agree:.4f} of "
+          f"the points ({int(st.sum())} / {int(st_p.sum())} tracked), "
+          f"max pos err {e:.3e} px where both track")
+    check(agree >= LK_FLAG_AGREE and e <= LK_POS_TOL,
+          f"kernel A's {label} call disagrees with the plain level loop: "
+          f"{agree}, {e}")
+    return err, rows
+
+
+def pose_problem(dev, seed: int = 0, F: int = 256):
+    """Kernel B's inputs at the main path's shape (S = 3 starts, F = 256
+    points) or with F points."""
     import numpy as np
     import torch
     from stereovision_slam_torch.geometry import jacobians, se3
     from stereovision_slam_torch.scenes import make_stereo_rig
 
-    F = 256
     rng = np.random.default_rng(seed)
     left, right = (c.to(dev) for c in make_stereo_rig())
     T_gt = se3.se3_exp(torch.tensor([0.3, -0.1, 0.5, 0.02, -0.03, 0.01],
@@ -413,12 +483,12 @@ def pose_problem(dev, seed: int = 0):
     return left, right, T0, pts, uv_l, uv_r, vl, vr
 
 
-def pose_args(dev, seed: int = 0):
+def pose_args(dev, seed: int = 0, F: int = 256):
     """(camp, pts, uv_l, uv_r, valid_l, valid_r, T0): kernel B's inputs for
     one stream."""
     from stereovision_slam_torch.ops import pose_kernel as pk
 
-    left, right, T0, pts, uv_l, uv_r, vl, vr = pose_problem(dev, seed)
+    left, right, T0, pts, uv_l, uv_r, vl, vr = pose_problem(dev, seed, F)
     return (pk.camera_block(left, right), pts.contiguous(),
             uv_l.contiguous(), uv_r.contiguous(), vl, vr, T0.contiguous())
 
@@ -515,20 +585,41 @@ def check_pose(dev):
     t = kernel_times(lambda: pk.pose_lm(*args, **kw))
     plain_ms = cuda_ms(lambda: pk.pose_lm_plain(*args, **kw), 3)
     S, F = T0.shape[0], pts.shape[0]
-    # per valid observation and pass (rounds x (iters + 1) + the final
-    # one): projection, Jacobian and the 28 sums, ~240 operations
-    passes = kw["rounds"] * (kw["iters"] + 1) + 1
-    flops = S * passes * float(vl.sum() + vr.sum()) * 240.0
-    nbytes = (sum(t_.numel() * t_.element_size() for t_ in args)
-              + sum(o.numel() * o.element_size() for o in k))
-    b, by = bound_ms(nbytes, flops)
+    b, by = pose_bound(args, k, kw)
     print(f"kernel B (B, S) = (1, {S}), F = {F}: {times_line(t)}; plain "
           f"{plain_ms:.3f} ms, bound {b:.6f} ms ({by})")
+    # F = WIDE_F, past the 1024 points the kernel stages in shared memory
+    # (the layout that reads its observations from global memory)
+    args_w = pose_args(dev, F=WIDE_F)
+    for kw_w, tol in ((one, POSE_STEP_TOL), (kw, POSE_T_TOL)):
+        k_w = pk.pose_lm(*args_w, **kw_w)
+        err = max(err, hold_pose(k_w, pk.pose_lm_plain(*args_w, **kw_w), tol,
+                                 f"(B, S) = (1, 3), F = {WIDE_F}, "
+                                 f"{kw_w['rounds']} x {kw_w['iters']}"))
+    t_w = kernel_times(lambda: pk.pose_lm(*args_w, **kw))
+    t_w["plain_ms"] = cuda_ms(lambda: pk.pose_lm_plain(*args_w, **kw), 3)
+    t_w["bound_ms"], t_w["bound_by"] = pose_bound(args_w, k_w, kw)
+    print(f"kernel B (B, S) = (1, 3), F = {WIDE_F}: {times_line(t_w)}; plain "
+          f"{t_w['plain_ms']:.3f} ms, bound {t_w['bound_ms']:.6f} ms "
+          f"({t_w['bound_by']})")
     return dict(name="pose_lm", route="cuda",
                 source="stereovision_slam_torch/csrc/pose_lm.cu",
                 replaces="stereovision_slam_tpu/ops/pose_pallas.py:38",
                 max_abs_err=max(err, step_err), **t, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None)
+                bound_ms=b, bound_by=by, library_ms=None,
+                wide={f"F{WIDE_F}": t_w})
+
+
+def pose_bound(args, out, kw):
+    """Kernel B's bound for one call: inputs read and outputs written once;
+    per valid observation and pass (rounds x (iters + 1) + the final one)
+    the projection, Jacobian and the 28 sums, ~240 operations."""
+    S = args[6].shape[-3]
+    passes = kw["rounds"] * (kw["iters"] + 1) + 1
+    flops = S * passes * float(args[4].sum() + args[5].sum()) * 240.0
+    nbytes = (sum(t_.numel() * t_.element_size() for t_ in args)
+              + sum(o.numel() * o.element_size() for o in out))
+    return bound_ms(nbytes, flops)
 
 
 def bench_config():
@@ -663,6 +754,251 @@ def check_held(records: list, label: str) -> tuple[float, float]:
     return c_err, g_err
 
 
+@contextlib.contextmanager
+def recorded(records: list):
+    """While active, every launch of kernel A (`lk_lanes.lk_pyramid`) and
+    kernel B (`pose_kernel.pose_lm`) is recorded with its inputs (kept by
+    reference: the path builds new tensors and changes none in place) and
+    a copy of its outputs, so that `hold_recorded` can hold each to its
+    plain version after the run without slowing the run down."""
+    from stereovision_slam_torch.ops import lk_lanes, pose_kernel
+
+    kernel_a, kernel_b = lk_lanes.lk_pyramid, pose_kernel.pose_lm
+
+    def a(*args, **kw):
+        out = kernel_a(*args, **kw)
+        records.append(("A", args, kw, tuple(o.clone() for o in out)))
+        return out
+
+    def b(*args, **kw):
+        out = kernel_b(*args, **kw)
+        records.append(("B", args, kw, type(out)(*(o.clone() for o in out))))
+        return out
+
+    lk_lanes.lk_pyramid, pose_kernel.pose_lm = a, b
+    try:
+        yield
+    finally:
+        lk_lanes.lk_pyramid, pose_kernel.pose_lm = kernel_a, kernel_b
+
+
+def hold_recorded(records: list, label: str, lost_at: int):
+    """Gates every recorded launch against its plain version on the same
+    inputs: kernel A level by level against `replay_levels` (LK_FLAG_AGREE,
+    LK_POS_TOL, as phase 2); kernel B on what the path reads from it. A
+    frame whose left inliers are at most `lost_at` is LOST: the path drops
+    its pose and reads only that count, so there kernel and plain version
+    must both count at most `lost_at`. Elsewhere the chosen start's pose
+    within POSE_T_TOL, its [left; right] inliers equal on POSE_INLIER_AGREE
+    of the observations and every start's inliers too, the chosen outputs
+    the kernel's own start's. A launch whose chosen pose or inliers miss
+    that is launched again with its decisions traced (the same bits
+    required) and replayed: the plain version follows those decisions and
+    is held to the same tolerances, every start's pose included, and each
+    decision of its own that differs must be a tie (POSE_ACC_TIE,
+    POSE_LEVEL_TIE). Every start's pose and cost gaps are printed beside
+    them, and the worst launches with, where the chosen pose is over
+    POSE_T_TOL, the plain version's final robust cost at the kernel's pose
+    relative to its cost at its own. Phase 3 holds every start on its own
+    problem. Returns the largest kernel A and chosen kernel B errors (of
+    the replay, where one ran) and the holds missed."""
+    import torch
+    from stereovision_slam_torch.ops import lk_lanes, pose_kernel
+
+    a_agree, a_err, n_a, n_lost = 1.0, 0.0, 0, 0
+    b_err, b_agree, s_err, s_cost, s_over, own = 0.0, 1.0, 0.0, 0.0, 0, True
+    same_lost, worst, n_cost, c_gap = True, [], 0, 0.0
+    replays, r_err, r_same, flips, acc_tie, lev_tie = 0, 0.0, True, 0, 0.0, 0.0
+    for kind, args, kw, out in records:
+        if kind == "A":
+            n_a += 1
+            replay = lk_lanes.replay_levels(*args, out[2], **kw)
+            for agree, e in lk_level_gaps(out[2], replay):
+                a_agree, a_err = min(a_agree, agree), max(a_err, e)
+            continue
+        p = pose_kernel.pose_lm_plain(*args, **kw)
+        n_k, n_p = int(out.n_inliers.max()), int(p.n_inliers.max())
+        e_T = float((out.T - p.T).abs().max())
+        worst.append((e_T, len(worst), n_k, n_p))
+        if max(n_k, n_p) <= lost_at:
+            n_lost += 1
+            continue
+        same_lost = same_lost and min(n_k, n_p) > lost_at
+        lead = out.cost.shape[:-1]
+        T_all, inl_all, cost = (x.reshape(-1, *x.shape[len(lead):])
+                                for x in (out.T_all, out.inl_all, out.cost))
+        best = torch.argmin(cost, dim=-1)
+        rows = torch.arange(best.numel(), device=best.device)
+        own = (own and torch.equal(out.T.reshape(-1, 3, 4), T_all[rows, best])
+               and torch.equal(out.inlier.reshape(len(rows), -1),
+                               inl_all[rows, best].reshape(len(rows), -1)))
+        agree = min(float((out.inlier == p.inlier).float().mean()),
+                    float((out.inl_all == p.inl_all).float()
+                          .mean(dim=(-2, -1)).min()))
+        if e_T > POSE_T_TOL or agree < POSE_INLIER_AGREE:
+            # a decision taken on a tie, or a fault: replay the kernel's
+            # decisions in the plain version
+            tr, fol = {}, {}
+            again = pose_kernel.pose_lm(*args, **kw, trace=tr)
+            r_same = r_same and all(torch.equal(x, y)
+                                    for x, y in zip(again, out))
+            p = pose_kernel.pose_lm_plain(*args, **kw, follow=tr, trace=fol)
+            replays += 1
+            flips += fol["acc_flips"] + fol["lev_flips"]
+            acc_tie = max(acc_tie, fol["acc_tie"])
+            lev_tie = max(lev_tie, fol["lev_tie"])
+            e_T = float((out.T_all - p.T_all).abs().max())
+            r_err = max(r_err, e_T)
+            agree = min(float((out.inlier == p.inlier).float().mean()),
+                        float((out.inl_all == p.inl_all).float()
+                              .mean(dim=(-2, -1)).min()))
+        b_err = max(b_err, e_T)
+        if e_T > POSE_T_TOL:
+            # the plain version's final cost at the kernel's chosen pose
+            at_k = pose_kernel.pose_lm_plain(*args[:6], out.T[..., None, :, :],
+                                             chi2_th=kw["chi2_th"], rounds=0,
+                                             iters=0)
+            own_c = p.cost.reshape(-1, p.cost.shape[-1]).min(dim=-1).values
+            gap = float(((at_k.cost.reshape(-1) - own_c).abs()
+                         / own_c.abs().clamp(min=1.0)).max())
+            n_cost, c_gap = n_cost + 1, max(c_gap, gap)
+            worst[-1] = worst[-1] + (gap,)
+        b_agree = min(b_agree, agree)
+        e = float((out.T_all - p.T_all).abs().max())
+        s_err, s_over = max(s_err, e), s_over + (e > POSE_T_TOL)
+        s_cost = max(s_cost, float(((out.cost - p.cost).abs()
+                                    / p.cost.abs().clamp(min=1.0)).max()))
+    n_b = len(worst)
+    print(f"{label}: {n_a} kernel A launches held level by level, flags "
+          f"agree >= {a_agree:.4f}, max pos err {a_err:.3e} px; {n_b} kernel "
+          f"B launches, {n_lost} on LOST frames (<= {lost_at} left inliers "
+          f"in both; the path drops their pose) and the others held: the "
+          f"chosen pose within {b_err:.3e}, inliers (chosen and every "
+          f"start's) agree >= {b_agree:.4f}, chosen outputs the kernel's own "
+          f"start's: {own}, the LOST decision the same: {same_lost}; every "
+          f"start's pose within {s_err:.3e} ({s_over} launches with a start "
+          f"over {POSE_T_TOL}), costs within {s_cost:.3e}; {n_cost} chosen "
+          f"poses over {POSE_T_TOL}, the plain cost there within {c_gap:.3e} "
+          f"of its own; the largest chosen-pose gaps (gap, launch, left "
+          f"inliers kernel/plain, cost gap): "
+          + ", ".join(f"{w[0]:.2e} #{w[1]} {w[2]}/{w[3]}"
+                      + (f" {w[4]:.2e}" if len(w) > 4 else "")
+                      for w in sorted(worst, reverse=True)[:4])
+          + f"; {replays} launches replayed with the kernel's decisions "
+          f"(traced launch the same bits: {r_same}): every start within "
+          f"{r_err:.3e}, {flips} decisions of the plain version's own "
+          f"differ, acceptances within {acc_tie:.3e} of a tie (held to "
+          f"{POSE_ACC_TIE}), inliers within {lev_tie:.3e} of the threshold "
+          f"(held to {POSE_LEVEL_TIE})")
+    failed = []
+    if not (n_a > 0 and a_agree >= LK_FLAG_AGREE and a_err <= LK_POS_TOL):
+        failed.append(f"{label}: kernel A disagrees with its plain version: "
+                      f"{a_agree}, {a_err}")
+    if not (n_b > 0 and b_err <= POSE_T_TOL and b_agree >= POSE_INLIER_AGREE
+            and own and same_lost and r_same and acc_tie <= POSE_ACC_TIE
+            and lev_tie <= POSE_LEVEL_TIE):
+        failed.append(f"{label}: kernel B disagrees with its plain version: "
+                      f"chosen pose {b_err:.3e}, inliers {b_agree:.4f}")
+    return a_err, b_err, failed
+
+
+def loop_config():
+    """The bench's `make_config` settings with `PLACENET_LOOP_GATES`."""
+    from stereovision_slam_torch.slam.config import PLACENET_LOOP_GATES
+
+    cfg = bench_config()
+    for k, v in PLACENET_LOOP_GATES.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def loop_phase(label: str, scene, counters, dev, place_params):
+    """Phase 13: the bench's main path on one scene, `FusedLoopVisualOdometry`
+    on "cuda" with the shipped PlaceNet weights, the launch counters set to
+    0 before it; every kernel A and B launch recorded, then held to its
+    plain version; shutdown PGO; the bench's gates. Returns (launches,
+    kernel A error, kernel B error, the holds and gates missed), which
+    main() gates after reporting everything."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch.io.dataset import ArraySequenceDataset
+    from stereovision_slam_torch.slam.fused_loop import (
+        FusedLoopVisualOdometry)
+
+    lefts, rights, gt, dist, rig = scene
+    T = len(lefts)
+    vo = FusedLoopVisualOdometry(
+        loop_config(), ArraySequenceDataset(lefts, rights, list(rig)),
+        place_params=place_params, max_total_keyframes=512,
+        max_total_landmarks=1 << 16, device=dev)
+    vo.initialize()
+    for mod in counters.values():
+        mod.launch_count = 0
+    records = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded(records):
+        vo.run()
+    dt = time.perf_counter() - t0
+    launches = {k: m.launch_count for k, m in counters.items()}
+    keyframes, landmarks, frames = vo.drain()
+    n_in = np.array([int(f.n_inliers) for _, f in frames])
+    inserted = sum(bool(f.kf_inserted) for _, f in frames)
+
+    def center(p):
+        return -p[:, :3].T @ p[:, 3]
+
+    errs = [np.linalg.norm(center(p) - center(gt[f]))
+            for f, p in sorted(keyframes.values())]
+    ate = float(np.sqrt(np.mean(np.square(errs))))
+    edges = vo.loop_edges()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = vo.run_pgo()
+    torch.cuda.synchronize()
+    pgo_s = time.perf_counter() - t0
+    errs = [np.linalg.norm(center(np.asarray(p)) - center(gt[f]))
+            for f, p in traj.items()]
+    ate_pgo = float(np.sqrt(np.mean(np.square(errs))))
+    tracked = T - 1
+    print(f"loop {label}: {T} frames in {dt:.3f} s = {T / dt:.2f} fps (host "
+          f"clock, ends in synchronize; PlaceNet, loop hook), "
+          f"{len(keyframes)} keyframes, {len(landmarks)} landmarks, "
+          f"{len(edges)} loops {[(e.kf_id, e.loop_kf_id) for e in edges]}, "
+          f"keyframe ATE {ate:.4f} m, after PGO {ate_pgo:.4f} m over "
+          f"{dist:.1f} m ({100 * ate_pgo / dist:.3f}%), pgo_s {pgo_s:.3f}, "
+          f"hook host reads {vo.hook_reads} over {inserted - 1} hooked "
+          f"keyframes; launches {launches} for {tracked} tracked frames and "
+          f"{inserted} keyframe steps")
+    a_err, b_err, failed = hold_recorded(records, f"loop {label}",
+                                         vo.cfg.num_features_tracking_bad)
+    want_a = 2 * tracked + inserted        # one launch per LK call
+    check(launches["lk_pyramid"] == want_a,
+          f"loop {label}: kernel A launched {launches['lk_pyramid']} times, "
+          f"not {want_a}")
+    check(launches["pose_lm"] == tracked,
+          f"loop {label}: kernel B launched {launches['pose_lm']} times, "
+          f"not {tracked}")
+    check(vo.hook_reads <= 2 * (inserted - 1),
+          f"loop {label}: {vo.hook_reads} hook host reads")
+    # the bench's gates (bench.py:226-269), every failure listed
+    gates = {
+        f"{len(keyframes)} keyframes, {len(landmarks)} landmarks":
+            len(keyframes) >= 2 and len(landmarks) > 50,
+        f"tracking collapsed: n_inliers down to {n_in[1:].min()}":
+            bool(np.all(n_in[1:] > 10)),
+        "ATE not finite": bool(np.isfinite(ate) and np.isfinite(ate_pgo)),
+        "no loop closed": len(edges) >= 1,
+        f"ATE after PGO {ate_pgo:.4f} m is not under 2% of {dist:.1f} m":
+            ate_pgo < 0.02 * dist,
+        f"PGO degraded the trajectory: {ate_pgo:.4f} > {ate:.4f} m":
+            ate_pgo <= ate + 1e-6}
+    missed = [f"loop {label}: {msg}" for msg, ok in gates.items() if not ok]
+    print(f"loop {label}: the bench's gates "
+          + ("met" if not missed else "MISSED: " + "; ".join(missed)))
+    return launches, a_err, b_err, failed + missed
+
+
 def serving_streams(lefts, rights, gt):
     """SERVE_B streams of SERVE_T circuit frames, stream b from frame
     SERVE_STRIDE * b, with ground truth re-based to its first frame."""
@@ -732,14 +1068,9 @@ def check_lk_window(streams, dev):
                    if r["name"] == "gather_windows")
     one_launch(lambda: lk_iterate.lk_iterate(*a, **kw), "lk_iterate",
                lk_iterate)
-    win, tmpl = a[0], a[1]
-    N, P, R = win.shape[0], win.shape[1], tmpl.shape[1]
-    iters = float(lk_iterate.lk_iterate_plain(*a, **kw)[:, 4].sum())
-    # per pixel and iteration: 4-term bilinear (7), diff (1), two
-    # multiply-adds (4)
-    flops = iters * R * R * 12.0
-    nbytes = 4 * (sum(t.numel() for t in a) + N * lk_iterate.OUT_COLS)
-    b_c, by_c = bound_ms(nbytes, flops)
+    win = a[0]
+    N, P = win.shape[0], win.shape[1]
+    b_c, by_c = c_bound(a, kw)
     c_row = dict(name="lk_iterate", route="cuda",
                  source="stereovision_slam_torch/csrc/lk_iterate.cu",
                  replaces="stereovision_slam_tpu/ops/lk_pallas.py:46",
@@ -772,7 +1103,41 @@ def check_lk_window(streams, dev):
     print(f"gather N={N}, P={P}: {times_line(g_row)}; plain "
           f"{g_row['plain_ms']:.4f} ms; advanced indexing {times_line(lib)}; "
           f"bound {b_g:.6f} ms ({by_g})")
+
+    # patch WIDE_R, once above kernel C's cap (11): the G = B call, every
+    # launch held; times at its first launch (level 1, the smaller window)
+    records = []
+    with held_to_plain(records):
+        lk.track_batched(prev, cur, pts, pts, valid, win_size=WIDE_R,
+                         max_iters=12, pallas_mode="pallas")
+    check(len(records) == 4, f"{len(records)} kernel C and gather launches "
+          f"at patch {WIDE_R}, not 2 each")
+    e_c, e_g = check_held(records, f"phase 6, patch {WIDE_R}")
+    c_row["max_abs_err"] = max(c_row["max_abs_err"], e_c)
+    g_row["max_abs_err"] = max(g_row["max_abs_err"], e_g)
+    a, kw = next(r["args"] for r in records if r["name"] == "lk_iterate")
+    t = kernel_times(lambda: lk_iterate.lk_iterate(*a, **kw))
+    t["plain_ms"] = cuda_ms(lambda: lk_iterate.lk_iterate_plain(*a, **kw), 3)
+    t["bound_ms"], t["bound_by"] = c_bound(a, kw)
+    c_row["wide"] = {f"R{WIDE_R}": t}
+    print(f"kernel C N={a[0].shape[0]} patch {WIDE_R} window "
+          f"{a[0].shape[1]} level {kw['H']}x{kw['W']}: {times_line(t)}; "
+          f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']})")
     return c_row, g_row
+
+
+def c_bound(a, kw):
+    """Kernel C's bound for one call: inputs read and the (N, 5) rows
+    written once; per pixel and iteration the 4-term bilinear (7), the
+    difference (1) and two multiply-adds (4), for the iterations these
+    inputs take."""
+    from stereovision_slam_torch.ops import lk_iterate
+
+    N, R = a[0].shape[0], a[1].shape[1]
+    iters = float(lk_iterate.lk_iterate_plain(*a, **kw)[:, 4].sum())
+    nbytes = 4 * (sum(t.numel() for t in a) + N * lk_iterate.OUT_COLS)
+    return bound_ms(nbytes, iters * R * R * 12.0)
 
 
 def serving_config():
@@ -1318,8 +1683,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", type=int, default=0,
                     help="also profile this many frames of the slice and "
-                         "of the serving streams, and one call each of the "
-                         "sharded BA, the single-card BA and PGO")
+                         "of the serving streams, one call each of the "
+                         "sharded BA, the single-card BA and PGO, and the "
+                         "loop path over the whole circuit")
     args = ap.parse_args()
     try:
         import numpy as np
@@ -1461,24 +1827,56 @@ def main() -> int:
         vo, counters, dev, kernels[-1]["max_abs_err"], bool(args.profile))
     pgo_phase(keyframes, gt, dev, bool(args.profile))
 
-    # launches: kernels A and B on the slice (the main path), kernel C and
-    # the gather on the serving run with the per-level LK, kernel D on the
-    # sharded BA; every path's counts beside them
-    main_path = {"lk_pyramid": "slice", "pose_lm": "slice",
-                 "lk_iterate": "serving_pallas",
-                 "gather_windows": "serving_pallas",
-                 "ring_all_reduce": "sharded_ba"}
+    # 13. the bench's main path: loop closure on the circuit and on the
+    # 480-frame multi-lap circuit, every kernel A and B launch held
+    from stereovision_slam_torch.models import place_net
+    params = place_net.get_params(device=dev)
+    check(params is not None, f"no PlaceNet weights at {place_net.WEIGHTS_PATH}")
+    scenes_loop = {"circuit": (lefts, rights, gt, dist, rig)}
+    t0 = time.perf_counter()
+    scenes_loop["circuit_long"] = scenes.circuit_long(LONG_T, 188, 620,
+                                                      device=dev)
+    print(f"rendered the long circuit ({LONG_T} frames) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    missed = []
+    for name, scene in scenes_loop.items():
+        by_path[f"loop_{name}"], a_err, b_err, failed = loop_phase(
+            name, scene, counters, dev, params)
+        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], a_err)
+        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_err)
+        missed += failed
+    if args.profile:
+        from stereovision_slam_torch.io.dataset import ArraySequenceDataset
+        from stereovision_slam_torch.slam.fused_loop import (
+            FusedLoopVisualOdometry)
+        vo_l = FusedLoopVisualOdometry(
+            loop_config(), ArraySequenceDataset(lefts, rights, list(rig)),
+            place_params=params, max_total_keyframes=512,
+            max_total_landmarks=1 << 16, device=dev)
+        vo_l.initialize()
+        profile_run("loop", vo_l.run, T - 1)
+
+    # launches: kernels A and B on the loop path over both scenes (the
+    # main path), kernel C and the gather on the serving run with the
+    # per-level LK, kernel D on the sharded BA; every path's counts beside
+    # them
+    main_path = {"lk_pyramid": ("loop_circuit", "loop_circuit_long"),
+                 "pose_lm": ("loop_circuit", "loop_circuit_long"),
+                 "lk_iterate": ("serving_pallas",),
+                 "gather_windows": ("serving_pallas",),
+                 "ring_all_reduce": ("sharded_ba",)}
     for k in kernels:
-        path = main_path[k["name"]]
-        k["launches"] = by_path[path][k["name"]]
+        k["launches"] = sum(by_path[p][k["name"]] for p in main_path[k["name"]])
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "cold_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_cold_ms",
-            "streams_4x3", "launches_by_path")
+            "streams_4x3", "wide", "launches_by_path")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(smi)
+    # the bench's gates of phase 13, after everything else is reported
+    check(not missed, "; ".join(missed))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

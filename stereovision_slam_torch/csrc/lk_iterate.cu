@@ -17,17 +17,19 @@
 // latency of the dependent Gauss-Newton chain of each point.
 //
 // Design: one warp per point, four points per block, instantiated per
-// patch size R with the (R + 21)-pixel windows `ops/lk.py` gathers (margin
-// 10 each side), so every index is a compile-time constant. The warp stages
-// its point's window in shared memory with 16-byte loads, all of them in
-// flight at once, under a row pitch chosen at compile time so that the
-// lanes' rows fall in distinct banks. Two lanes share each patch row: lane
-// i + 16h owns columns [h * ceil(R/2), ...) of row i, with its template and
-// gradient half-rows in registers, so 2R lanes work (22 of 32 at R = 11).
-// Per step each lane forms the 4-term bilinear sums of its half-row and
-// its sums of diff * gx and diff * gy, columns in order; a 5-round
-// __shfl_xor_sync butterfly then adds the two halves of each row and the
-// rows as a pairwise tree (rows padded to 16 with zeros). XOR partners add
+// patch size R (1 to 31) with the (R + 21)-pixel windows `ops/lk.py`
+// gathers (margin 10 each side), so every index is a compile-time
+// constant. The warp stages its point's window in shared memory with
+// 16-byte loads, all of them in flight at once, under a row pitch chosen
+// at compile time so that the lanes' rows fall in distinct banks. Up to
+// R = 16 two lanes share each patch row: lane i + 16h owns columns
+// [h * ceil(R/2), ...) of row i, with its template and gradient half-rows
+// in registers, so 2R lanes work (22 of 32 at R = 11); above 16, lane i
+// owns the whole row i. Per step each lane forms the 4-term bilinear sums
+// of its columns and its sums of diff * gx and diff * gy, columns in
+// order; a 5-round __shfl_xor_sync butterfly then adds the two halves of
+// each row and the rows as a pairwise tree (rows padded to 16 with zeros),
+// or above R = 16 the rows as a pairwise tree over 32. XOR partners add
 // the same two numbers, so every lane ends with the same bits and the warp
 // branches uniformly. Each point leaves the loop on its own: frozen points
 // never move, which makes this equal to the TPU kernel's tile-wide exit.
@@ -39,14 +41,17 @@
 
 namespace {
 
-constexpr int kMaxR = 11;   // patch side (win) at most 11: windows of 32
+constexpr int kMaxR = 31;   // patch side (win) at most 31: windows of 52
 constexpr int kMargin = 10;
 constexpr int kWarpsPerBlock = 4;
 constexpr int kOutCols = 5;
 
+// Two lanes per patch row up to R = 16, one above.
+__host__ __device__ constexpr bool split_rows(int R) { return R <= 16; }
+
 // Worst bank multiplicity of the lanes' row starts i * pitch + h * H0.
 __host__ __device__ constexpr int row_conflicts(int R, int pitch) {
-  const int H0 = (R + 1) / 2;
+  const int H0 = split_rows(R) ? (R + 1) / 2 : R;
   int worst = 0;
   for (int bank = 0; bank < 32; ++bank) {
     int n = 0;
@@ -83,8 +88,11 @@ lk_iterate_kernel(const float* __restrict__ win,
                   int N, int max_iters, int W, int H, float eps2) {
   constexpr int S = R + 1;
   constexpr int kPitch = row_pitch(R, P);
-  constexpr int H0 = (R + 1) / 2;          // columns of half 0
-  constexpr int H1 = R - H0;               // columns of half 1
+  constexpr bool kSplit = split_rows(R);
+  constexpr int H0 = kSplit ? (R + 1) / 2 : R;   // columns of half 0
+  constexpr int H1 = R - H0;                     // columns of half 1
+  static_assert(kWarpsPerBlock * P * kPitch * 4 <= 48 * 1024,
+                "a block's windows exceed 48 KB of static shared memory");
   __shared__ float sm[kWarpsPerBlock][P * kPitch];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -131,8 +139,9 @@ lk_iterate_kernel(const float* __restrict__ win,
   }
   __syncwarp();
 
-  // lane i + 16h owns columns [h * H0, h * H0 + (h ? H1 : H0)) of row i
-  const int row = lane & 15, half = lane >> 4;
+  // lane i + 16h owns columns [h * H0, h * H0 + (h ? H1 : H0)) of row i;
+  // above R = 16 lane i owns row i
+  const int row = kSplit ? lane & 15 : lane, half = kSplit ? lane >> 4 : 0;
   const int c0 = half * H0, ncols = half ? H1 : H0;
   const bool live_lane = row < R;
   float t[H0], ax[H0], ay[H0];
@@ -232,7 +241,7 @@ int launch(int R, int P, int blocks, cudaStream_t stream, const float* win,
 
 }  // namespace
 
-// win must be 16-byte aligned; S - 1 in [1, 11] and P = S + 20.
+// win must be 16-byte aligned; S - 1 in [1, 31] and P = S + 20.
 extern "C" int lk_iterate_launch(const float* win, const float* tmpl,
                                  const float* gx, const float* gy,
                                  const float* coef, const float* flags,

@@ -35,7 +35,7 @@
 // Design: one warp per point, two points per 64-thread block, and one
 // launch per call instead of one per level with ~25 eager ops of prep and
 // status logic between them. The kernel is instantiated for each window
-// size (1-15), so the patch's loops and index arithmetic are constants. The
+// size (1-31), so the patch's loops and index arithmetic are constants. The
 // level table (image pointers, H, W, Py, Px per level) is a
 // kernel-parameter struct; the guess stays in registers from one level to
 // the next. The warp's global reads are asynchronous copies into its
@@ -46,7 +46,10 @@
 // (Py, Px) search window once its guess is known. Rows are read coalesced
 // (index clamping stands in for the edge pad, so no padded copy is made:
 // the clamped row address once per row, the clamped column offsets once per
-// lane). The Scharr gradients are computed once per cell of the (win+1)^2
+// lane). A warp's shared memory grows with the window and the depth (31 KB
+// at win 15 and 8 levels, 76 KB at win 31): above 48 KB a block is one warp
+// and opts in to the larger dynamic shared memory. The Scharr gradients are
+// computed once per cell of the (win+1)^2
 // template grid into shared memory, then each template pixel blends its
 // four cells, as the plain version blends its gradient images. The row
 // strides of the search window and of the gradient cells are congruent to
@@ -64,10 +67,12 @@
 
 namespace {
 
-constexpr int kMaxWin = 15;
+constexpr int kMaxWin = 31;
 constexpr int kWarpsPerBlock = 2;   // one where the windows are large
 constexpr int kMaxLevels = 8;
 constexpr int kMaxCols = 3;         // search-window columns per lane, Px <= 96
+constexpr int kStaticSmem = 48 * 1024;      // without opting in
+constexpr int kMaxSmem = 227 * 1024;        // a block's most, opted in
 constexpr int kOutCols = 6;
 
 struct Level {
@@ -345,6 +350,12 @@ int launch(int win, const Params& P, int blocks, int threads, int bytes,
   if constexpr (WIN < kMaxWin) {
     if (win != WIN) return launch<WIN + 1>(win, P, blocks, threads, bytes, stream);
   }
+  if (bytes > kStaticSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lk_pyramid_kernel<WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
   lk_pyramid_kernel<WIN><<<blocks, threads, bytes, stream>>>(P);
   return (int)cudaGetLastError();
 }
@@ -381,12 +392,13 @@ extern "C" int lk_pyramid_launch(const unsigned long long* prev,
   if (n == 0) return 0;
   // per warp: every level's template window, the gradient cells, then the
   // search window (at most 8 x 18^2 + 2 x 16 x 47 + 48 x 79 floats, 31 KB,
-  // at win 15); a block stays under the 48 KB it may take without opting in
+  // at win 15; 8 x 34^2 + 2 x 32 x 63 + 64 x 95, 76 KB, at win 31); two
+  // warps a block where they fit in 48 KB, else one, opted in above 48 KB
   const int warp_floats = levels * (win + 3) * (win + 3)
                           + 2 * (win + 1) * (win + 32) + win_floats;
   const int warp_bytes = (int)sizeof(float) * warp_floats;
-  if (warp_bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int warps = warp_bytes * kWarpsPerBlock <= 48 * 1024 ? kWarpsPerBlock : 1;
+  if (warp_bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int warps = warp_bytes * kWarpsPerBlock <= kStaticSmem ? kWarpsPerBlock : 1;
   P.pts = pts;
   P.init = init;
   P.masks = masks;

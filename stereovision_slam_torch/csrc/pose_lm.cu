@@ -14,16 +14,23 @@
 // least cost (the first on ties or NaN, as torch.argmin): its T, its
 // [left; right] inlier mask and its count of left inliers. A launch solves
 // B streams at once (the reference's `jax.vmap` of the solve in
-// multi-stream serving), with the cameras shared.
+// multi-stream serving), with the cameras shared. On request it also writes
+// its decisions (each LM step's acceptance, each round's inlier set), so
+// that the plain version can replay them.
 //
 // What bounds it on an H100: latency. The inputs are ~10 KB and the work
 // ~20 MFLOP for S = 3, F = 256, 3 x 6 steps; every LM step is a chain of a
 // pass over the observations, a block reduction, a 6x6 solve and exp(dx).
 //
 // Design: one block per stream, a group of four warps per start (S <= 8).
-// The stream's points and observations are staged once in shared memory;
-// each thread owns observations f = t, t + 128, ... of both cameras and
-// keeps their inlier flags as bits of a register. One pass over the
+// Each thread owns observations f = t, t + 128, ... of both cameras. Up to
+// 1024 points the stream's points and observations are staged once in
+// shared memory and each thread keeps its inlier flags as bits of a
+// register; above that (any F) the threads read their observations from
+// global memory (L1/L2) and keep their inlier flags in their own bytes of
+// the inlier output, which no other thread touches. The two layouts are
+// template instances of one kernel: the arithmetic and its order per
+// observation and per sum are the same in both. One pass over the
 // observations per LM step, at the candidate exp(dx) T: it sums the robust
 // cost and the 21 H and 6 b entries together. Accepted, those sums are the
 // incumbent's for the next step; rejected, T and the inliers are unchanged,
@@ -49,7 +56,7 @@ namespace {
 
 constexpr int kGroupWarps = 4;                  // warps per start
 constexpr int kGroupThreads = 32 * kGroupWarps;
-constexpr int kMaxPoints = 1024;
+constexpr int kMaxPoints = 1024;               // staged in shared memory
 constexpr int kMaxStarts = 8;
 constexpr int kSlots = 32;                      // 21 H + 6 b + cost, padded
 constexpr int kCost = 27;
@@ -229,18 +236,80 @@ struct Args {
   float* T_best;           // (B, 3, 4)
   unsigned char* inl_best; // (B, 2F) bool, [left; right]
   int* n_best;             // (B,) left inliers of the chosen start
+  unsigned char* tr_acc;   // (B, S, rounds, iters) bool or null: accepted
+  unsigned char* tr_lev;   // (B, S, rounds, 2, F) bool or null: inliers
   int F, S, rounds, iters;
   float chi2_th;
 };
 
-template <int kStarts>
+template <int kStarts, bool kStaged>
 struct Smem {
+  static constexpr int kObs = kStaged ? kMaxPoints : 1;
   Cam cams[2];
-  float4 pts[kMaxPoints];            // (x, y, z, 0)
-  float4 uv[kMaxPoints];             // (ul, vl, ur, vr)
-  unsigned char valid[2][kMaxPoints];
+  float4 pts[kObs];                  // (x, y, z, 0)
+  float4 uv[kObs];                   // (ul, vl, ur, vr)
+  unsigned char valid[2][kObs];
   float4 part[3][kStarts][kGroupWarps][kSlots / 4];  // rotating partials
   float2 fin[kStarts][kGroupWarps];   // the final pass: cost, left inliers
+};
+
+// A thread's observations: point, (ul, vl, ur, vr) and validity of
+// observation f of the stream (bF = b * F), from shared memory where they
+// are staged, else from global memory.
+template <int kStarts, bool kStaged>
+__device__ __forceinline__ void observation(const Smem<kStarts, kStaged>& sm,
+                                            const Args& a, size_t bF, int f,
+                                            float4& p, float4& o) {
+  if constexpr (kStaged) {
+    p = sm.pts[f];
+    o = sm.uv[f];
+  } else {
+    const size_t bf = bF + f;
+    p = make_float4(a.pts[3 * bf], a.pts[3 * bf + 1], a.pts[3 * bf + 2], 0.0f);
+    const float2 l = reinterpret_cast<const float2*>(a.uv_l)[bf];
+    const float2 r = reinterpret_cast<const float2*>(a.uv_r)[bf];
+    o = make_float4(l.x, l.y, r.x, r.y);
+  }
+}
+
+template <int kStarts, bool kStaged>
+__device__ __forceinline__ bool obs_valid(const Smem<kStarts, kStaged>& sm,
+                                          const Args& a, size_t bF, int h,
+                                          int f) {
+  if constexpr (kStaged) return sm.valid[h][f] != 0;
+  else return (h ? a.valid_r : a.valid_l)[bF + f] != 0;
+}
+
+// A thread's inlier flags, observation (k-th of the thread, camera h, index
+// f): bits 2k + h of a register where the points are staged, else the
+// thread's own bytes of its start's rows of the inlier output.
+template <bool kStaged>
+struct Inliers;
+
+template <>
+struct Inliers<true> {
+  unsigned bits = 0;
+  __device__ __forceinline__ Inliers(unsigned char*, int) {}
+  __device__ __forceinline__ bool get(int k, int h, int) const {
+    return (bits >> (2 * k + h)) & 1u;
+  }
+  __device__ __forceinline__ void set(int k, int h, int, bool on) {
+    const unsigned bit = 1u << (2 * k + h);
+    bits = on ? (bits | bit) : (bits & ~bit);
+  }
+};
+
+template <>
+struct Inliers<false> {
+  unsigned char* rows;   // (2, F) of this start
+  int F;
+  __device__ __forceinline__ Inliers(unsigned char* r, int n) : rows(r), F(n) {}
+  __device__ __forceinline__ bool get(int, int h, int f) const {
+    return rows[h * F + f] != 0;
+  }
+  __device__ __forceinline__ void set(int, int h, int f, bool on) {
+    rows[h * F + f] = on ? 1 : 0;
+  }
 };
 
 // One pass of a start's threads over their observations at pose Tp.
@@ -249,32 +318,34 @@ struct Smem {
 // chi2_th), else chi2_th) into slot 0 and the left inliers into slot 1;
 // otherwise the robust cost into slot kCost and H, b into slots 0-26, over
 // the inliers in front of the camera.
-template <int kStarts, bool kRelevel, bool kFinal>
-__device__ __forceinline__ void pass(const Smem<kStarts>& sm,
+template <int kStarts, bool kStaged, bool kRelevel, bool kFinal>
+__device__ __forceinline__ void pass(const Smem<kStarts, kStaged>& sm,
+                                     const Args& a, size_t bF,
                                      const Cam (&cams)[2], int t, int F,
                                      const float (&Tp)[12], bool huber,
                                      float th, float lev_th, float chi2_th,
-                                     unsigned& inl, float (&acc)[kSlots]) {
+                                     Inliers<kStaged>& inl,
+                                     float (&acc)[kSlots]) {
 #pragma unroll
   for (int q = 0; q < kSlots; ++q) acc[q] = 0.0f;
   for (int f = t, k = 0; f < F; f += kGroupThreads, ++k) {
-    const float4 p = sm.pts[f];
-    const float4 o = sm.uv[f];
+    float4 p, o;
+    observation(sm, a, bF, f, p, o);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const unsigned bit = 1u << (2 * k + h);
-      if (!kRelevel && !(inl & bit)) continue;
+      if (!kRelevel && !inl.get(k, h, f)) continue;
       const Proj pr = project(Tp, cams[h], p, h ? o.z : o.x, h ? o.w : o.y);
       if (kRelevel) {
-        const bool val = sm.valid[h][f] != 0;
+        const bool val = obs_valid(sm, a, bF, h, f);
         const float cr = chi2(pr);
-        inl = (val && cr <= lev_th) ? (inl | bit) : (inl & ~bit);
+        const bool on = val && cr <= lev_th;
+        inl.set(k, h, f, on);
         if (kFinal) {
           acc[0] += val ? fminf(cr, chi2_th) : chi2_th;
-          if (h == 0 && (inl & bit)) acc[1] += 1.0f;
+          if (h == 0 && on) acc[1] += 1.0f;
           continue;
         }
-        if (!(inl & bit)) continue;
+        if (!on) continue;
       }
       if (!(pr.Z > 1e-6f)) continue;
       const float c = pr.ru * pr.ru + pr.rv * pr.rv;
@@ -298,8 +369,9 @@ __device__ __forceinline__ void pass(const Smem<kStarts>& sm,
 // The block's sums of start s from the partials of buffer `buf`, in every
 // lane: lane q < 28 adds slot q's warp partials in warp order, then the
 // sums are broadcast by shuffles, so every thread holds the same bits.
-template <int kStarts>
-__device__ __forceinline__ void start_sums(const Smem<kStarts>& sm, int buf,
+template <int kStarts, bool kStaged>
+__device__ __forceinline__ void start_sums(const Smem<kStarts, kStaged>& sm,
+                                           int buf,
                                            int s, float (&tot)[kSlots]) {
   const int lane = threadIdx.x & 31;
   const float* p = reinterpret_cast<const float*>(sm.part[buf][s][0]);
@@ -310,8 +382,9 @@ __device__ __forceinline__ void start_sums(const Smem<kStarts>& sm, int buf,
   for (int q = 0; q < kSlots; ++q) tot[q] = __shfl_sync(0xffffffffu, mine, q);
 }
 
-template <int kStarts>
-__device__ __forceinline__ float slot_sum(const Smem<kStarts>& sm, int buf,
+template <int kStarts, bool kStaged>
+__device__ __forceinline__ float slot_sum(const Smem<kStarts, kStaged>& sm,
+                                          int buf,
                                           int s, int q) {
   const float* p = reinterpret_cast<const float*>(sm.part[buf][s][0]);
   float v = p[q];
@@ -328,8 +401,9 @@ __device__ __forceinline__ int free_buffer(int inc, int last) {
 
 // Reduce acc over the block into buffer `buf` and wait for every warp: the
 // pass's one barrier.
-template <int kStarts>
-__device__ __forceinline__ void publish(Smem<kStarts>& sm, int buf, int s,
+template <int kStarts, bool kStaged>
+__device__ __forceinline__ void publish(Smem<kStarts, kStaged>& sm, int buf,
+                                        int s,
                                         float (&acc)[kSlots]) {
   const float v = warp_halving(acc);
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) % kGroupWarps;
@@ -337,10 +411,10 @@ __device__ __forceinline__ void publish(Smem<kStarts>& sm, int buf, int s,
   __syncthreads();
 }
 
-template <int kStarts>
+template <int kStarts, bool kStaged>
 __global__ void __launch_bounds__(kGroupThreads * kStarts)
 pose_lm_kernel(const Args a) {
-  __shared__ Smem<kStarts> sm;
+  __shared__ Smem<kStarts, kStaged> sm;
   const int b = blockIdx.x, F = a.F, S = a.S;
   const int s = threadIdx.x / kGroupThreads, t = threadIdx.x % kGroupThreads;
   const int bs = b * S + s;
@@ -353,14 +427,17 @@ pose_lm_kernel(const Args a) {
     for (int k = 0; k < 3; ++k) c.t[k] = cp[13 + k];
     sm.cams[threadIdx.x] = c;
   }
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    const size_t bf = (size_t)b * F + f;
-    sm.pts[f] = make_float4(a.pts[3 * bf], a.pts[3 * bf + 1], a.pts[3 * bf + 2], 0.0f);
-    const float2 l = reinterpret_cast<const float2*>(a.uv_l)[bf];
-    const float2 r = reinterpret_cast<const float2*>(a.uv_r)[bf];
-    sm.uv[f] = make_float4(l.x, l.y, r.x, r.y);
-    sm.valid[0][f] = a.valid_l[bf];
-    sm.valid[1][f] = a.valid_r[bf];
+  const size_t bF = (size_t)b * F;
+  if constexpr (kStaged) {
+    for (int f = threadIdx.x; f < F; f += blockDim.x) {
+      const size_t bf = bF + f;
+      sm.pts[f] = make_float4(a.pts[3 * bf], a.pts[3 * bf + 1], a.pts[3 * bf + 2], 0.0f);
+      const float2 l = reinterpret_cast<const float2*>(a.uv_l)[bf];
+      const float2 r = reinterpret_cast<const float2*>(a.uv_r)[bf];
+      sm.uv[f] = make_float4(l.x, l.y, r.x, r.y);
+      sm.valid[0][f] = a.valid_l[bf];
+      sm.valid[1][f] = a.valid_r[bf];
+    }
   }
   float T[12];
 #pragma unroll
@@ -368,11 +445,19 @@ pose_lm_kernel(const Args a) {
   __syncthreads();
   const Cam cams[2] = {sm.cams[0], sm.cams[1]};
 
-  // inlier bits start as the valid observations (round 0 does not re-level)
-  unsigned inl = 0;
+  // inliers start as the valid observations (round 0 does not re-level)
+  Inliers<kStaged> inl(a.inl_all + (size_t)bs * 2 * F, F);
   for (int f = t, k = 0; f < F; f += kGroupThreads, ++k)
-    for (int h = 0; h < 2; ++h)
-      if (sm.valid[h][f]) inl |= 1u << (2 * k + h);
+    for (int h = 0; h < 2; ++h) inl.set(k, h, f, obs_valid(sm, a, bF, h, f));
+  // the decisions, where asked for: round rnd's inlier set after its
+  // re-levelling, and each step's acceptance
+  auto trace_level = [&](int rnd) {
+    if (a.tr_lev == nullptr) return;
+    unsigned char* row = a.tr_lev + ((size_t)bs * a.rounds + rnd) * 2 * F;
+    for (int f = t, k = 0; f < F; f += kGroupThreads, ++k)
+      for (int h = 0; h < 2; ++h) row[(size_t)h * F + f] = inl.get(k, h, f);
+  };
+  trace_level(0);
 
   // The incumbent's sums stay in shared memory, in buffer `inc`: a pass
   // writes into the one buffer that no thread of its start may still read.
@@ -385,9 +470,10 @@ pose_lm_kernel(const Args a) {
     // threshold
     const float lev_th = a.chi2_th * (float)(1 << max(a.rounds - 1 - rnd, 0));
     if (rnd == 0)
-      pass<kStarts, false, false>(sm, cams, t, F, T, huber, th, 0.0f, a.chi2_th, inl, acc);
+      pass<kStarts, kStaged, false, false>(sm, a, bF, cams, t, F, T, huber, th, 0.0f, a.chi2_th, inl, acc);
     else
-      pass<kStarts, true, false>(sm, cams, t, F, T, huber, th, lev_th, a.chi2_th, inl, acc);
+      pass<kStarts, kStaged, true, false>(sm, a, bF, cams, t, F, T, huber, th, lev_th, a.chi2_th, inl, acc);
+    if (rnd > 0) trace_level(rnd);
     inc = last = free_buffer(inc, last);
     publish(sm, inc, s, acc);
     float inc_cost = slot_sum(sm, inc, s, kCost);
@@ -400,10 +486,12 @@ pose_lm_kernel(const Args a) {
         damped_solve(tot, lam, dx);
       }
       se3_exp_compose(dx, T, Tn);
-      pass<kStarts, false, false>(sm, cams, t, F, Tn, huber, th, 0.0f, a.chi2_th, inl, acc);
+      pass<kStarts, kStaged, false, false>(sm, a, bF, cams, t, F, Tn, huber, th, 0.0f, a.chi2_th, inl, acc);
       last = free_buffer(inc, last);
       publish(sm, last, s, acc);
       const float cand = slot_sum(sm, last, s, kCost);
+      if (a.tr_acc != nullptr && t == 0)
+        a.tr_acc[((size_t)bs * a.rounds + rnd) * a.iters + itr] = cand < inc_cost;
       if (cand < inc_cost) {
 #pragma unroll
         for (int q = 0; q < 12; ++q) T[q] = Tn[q];
@@ -416,7 +504,7 @@ pose_lm_kernel(const Args a) {
     }
   }
   // the last re-levelling (on chi2_th) and the final cost, then the argmin
-  pass<kStarts, true, true>(sm, cams, t, F, T, false, 0.0f, a.chi2_th, a.chi2_th, inl, acc);
+  pass<kStarts, kStaged, true, true>(sm, a, bF, cams, t, F, T, false, 0.0f, a.chi2_th, a.chi2_th, inl, acc);
   {
     const float v = warp_halving(acc);
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) % kGroupWarps;
@@ -443,8 +531,8 @@ pose_lm_kernel(const Args a) {
 
   for (int f = t, k = 0; f < F; f += kGroupThreads, ++k) {
     for (int h = 0; h < 2; ++h) {
-      const unsigned char on = (inl >> (2 * k + h)) & 1u;
-      a.inl_all[((size_t)bs * 2 + h) * F + f] = on;
+      const unsigned char on = inl.get(k, h, f) ? 1 : 0;
+      if constexpr (kStaged) a.inl_all[((size_t)bs * 2 + h) * F + f] = on;
       if (s == best) a.inl_best[((size_t)b * 2 + h) * F + f] = on;
     }
   }
@@ -462,27 +550,38 @@ pose_lm_kernel(const Args a) {
 
 }  // namespace
 
-// One block per stream, four warps per start. Returns the CUDA error of the
-// launch, or cudaErrorInvalidValue for sizes the kernel does not take.
+template <int kStarts, bool kStaged>
+int launch_kernel(const Args& a, int B, cudaStream_t stream) {
+  pose_lm_kernel<kStarts, kStaged><<<B, kGroupThreads * a.S, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// One block per stream, four warps per start; any F (staged in shared
+// memory up to kMaxPoints). tr_acc and tr_lev may be null (no trace).
+// Returns the CUDA error of the launch, or cudaErrorInvalidValue for sizes
+// the kernel does not take.
 extern "C" int pose_lm_launch(const float* camp, const float* pts,
                               const float* uv_l, const float* uv_r,
                               const unsigned char* valid_l,
                               const unsigned char* valid_r, const float* T0,
                               float* T_all, unsigned char* inl_all,
                               float* cost_all, float* T_best,
-                              unsigned char* inl_best, int* n_best, int B,
+                              unsigned char* inl_best, int* n_best,
+                              unsigned char* tr_acc, unsigned char* tr_lev,
+                              int B,
                               int F, int S, int rounds, int iters,
                               float chi2_th, void* stream) {
-  if (F < 0 || F > kMaxPoints || S < 1 || S > kMaxStarts || rounds < 1
+  if (F < 0 || S < 1 || S > kMaxStarts || rounds < 1
       || rounds > 30 || iters < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const Args a{camp, pts, uv_l, uv_r, valid_l, valid_r, T0, T_all, inl_all,
-               cost_all, T_best, inl_best, n_best, F, S, rounds, iters,
-               chi2_th};
-  if (S <= 3)
-    pose_lm_kernel<3><<<B, kGroupThreads * S, 0, (cudaStream_t)stream>>>(a);
-  else
-    pose_lm_kernel<kMaxStarts><<<B, kGroupThreads * S, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+               cost_all, T_best, inl_best, n_best, tr_acc, tr_lev, F, S,
+               rounds, iters, chi2_th};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (F <= kMaxPoints)
+    return S <= 3 ? launch_kernel<3, true>(a, B, st)
+                  : launch_kernel<kMaxStarts, true>(a, B, st);
+  return S <= 3 ? launch_kernel<3, false>(a, B, st)
+                : launch_kernel<kMaxStarts, false>(a, B, st);
 }

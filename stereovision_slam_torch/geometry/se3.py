@@ -156,6 +156,20 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     return se3_from_Rt(Rinv, -_mv(Rinv, T[..., :3, 3]))
 
 
+def se3_orthonormalize(T: torch.Tensor, steps: int = 2) -> torch.Tensor:
+    """T with its rotation projected back onto SO(3) by Newton-Schulz polar
+    steps R <- R (3I - R^T R) / 2, each of which squares the deviation
+    |R^T R - I|; t is kept. `se3_inverse` transposes, which is exact only on
+    SO(3): without this, the motion model T_new * T_prev^-1 roughly doubles
+    a pose's float32 deviation every frame."""
+    R = T[..., :3, :3]
+    eye3 = torch.eye(3, dtype=R.dtype, device=R.device)
+    for _ in range(steps):
+        R = 0.5 * torch.matmul(R, 3.0 * eye3 - torch.matmul(
+            R.transpose(-1, -2), R))
+    return se3_from_Rt(R, T[..., :3, 3])
+
+
 def se3_apply(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """(..., 3, 4) x (..., 3) -> (..., 3)."""
     return _mv(T[..., :3, :3], p) + T[..., :3, 3]

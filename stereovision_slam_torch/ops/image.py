@@ -1,5 +1,5 @@
-"""Image primitives: pyramids, gradients, bilinear patch sampling
-(counterpart of `ops/image.py`).
+"""Image primitives: pyramids, gradients, Gaussian blur, linear resize,
+bilinear patch sampling (counterpart of `ops/image.py`).
 
 Filters are the reference's zero-padded separable shift-adds, term by term in
 the same order, rather than `F.conv2d`: cuDNN would run a float32 convolution
@@ -35,6 +35,49 @@ def _sep_filter(img: torch.Tensor, kx, ky) -> torch.Tensor:
         term = padded[..., i:i + H, :] * w
         out2 = term if out2 is None else out2 + term
     return out2
+
+
+# OpenCV's fixed small-kernel tables (getGaussianKernel with sigma <= 0 and
+# ksize <= 7 returns these, not the sigma formula).
+_SMALL_GAUSSIAN_TAB = {
+    1: np.array([1.0], np.float32),
+    3: np.array([0.25, 0.5, 0.25], np.float32),
+    5: np.array([0.0625, 0.25, 0.375, 0.25, 0.0625], np.float32),
+    7: np.array([0.03125, 0.109375, 0.21875, 0.28125,
+                 0.21875, 0.109375, 0.03125], np.float32),
+}
+
+
+def gaussian_kernel1d(size: int, sigma: float | None = None) -> np.ndarray:
+    """Odd-sized normalized 1-D Gaussian (OpenCV conventions when sigma is
+    None: fixed taps for ksize <= 7, else sigma 0.3((k-1)/2-1)+0.8), as a
+    numpy array: the taps are constants of the shift-add filter."""
+    if (sigma is None or sigma <= 0) and size in _SMALL_GAUSSIAN_TAB:
+        return _SMALL_GAUSSIAN_TAB[size]
+    if sigma is None or sigma <= 0:
+        sigma = 0.3 * ((size - 1) * 0.5 - 1) + 0.8
+    x = np.arange(size, dtype=np.float32) - (size - 1) / 2.0
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    return k / np.sum(k)
+
+
+def gaussian_blur(img: torch.Tensor, size: int,
+                  sigma: float | None = None) -> torch.Tensor:
+    """Separable Gaussian blur, SAME size, zero padding."""
+    k = gaussian_kernel1d(size, sigma)
+    return _sep_filter(img, k, k)
+
+
+def resize_linear(img: torch.Tensor, shape) -> torch.Tensor:
+    """(..., H, W) -> (..., h, w), the counterpart of `jax.image.resize(img,
+    shape, "linear")`: half-pixel centers and, when shrinking, a triangle
+    kernel widened by the scale (JAX antialiases by default), which is
+    `F.interpolate(..., "bilinear", antialias=True)`."""
+    lead = img.shape[:-2]
+    x = img.reshape(-1, 1, *img.shape[-2:])
+    out = F.interpolate(x, size=tuple(shape), mode="bilinear",
+                        antialias=True, align_corners=False)
+    return out.reshape(*lead, *shape)
 
 
 _PYRDOWN_K = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0

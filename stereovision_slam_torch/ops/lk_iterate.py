@@ -10,11 +10,13 @@ initial freeze flags, the guesses and the window corners, all in padded
 level coordinates. It launches the kernel on a CUDA tensor and runs
 `lk_iterate_plain` on a CPU tensor.
 
-Both sum in the kernel's order, so they agree bit for bit: each patch row
-splits into two halves of ceil(R/2) and floor(R/2) columns, each half sums
-diff * gx and diff * gy over its columns in order, the two halves of a row
-are added, and the rows, padded to 16 with zeros, are added as a pairwise
-tree (row i + row i + 8, then + 4, + 2, + 1): the kernel's warp butterfly.
+Both sum in the kernel's order, so they agree bit for bit: up to R = 16
+each patch row splits into two halves of ceil(R/2) and floor(R/2) columns,
+each half sums diff * gx and diff * gy over its columns in order, the two
+halves of a row are added, and the rows, padded to 16 with zeros, are added
+as a pairwise tree (row i + row i + 8, then + 4, + 2, + 1): the kernel's
+warp butterfly. Above R = 16 each row sums its columns in order and the
+rows, padded to 32, are added as a pairwise tree from + 16 down.
 The reference streams the rows in order instead, which is why the tests
 hold this version to the reference's kernel within 1e-3 px.
 """
@@ -29,7 +31,7 @@ from stereovision_slam_torch.ops import _cuda
 from stereovision_slam_torch.ops.image import floor_int
 
 OUT_COLS = 5     # [x, y, frozen, left_win, iterations]
-MAX_WIN = 11     # the kernel's patch sizes: 1 to 11
+MAX_WIN = 31     # the kernel's patch sizes: 1 to 31
 WINDOW_MARGIN = 10   # its windows: P = S + 2 * 10 (`ops/lk.py`'s)
 launch_count = 0
 # lk_iterate_launch(win, tmpl, gx, gy, coef, flags, pts, corner, out, N, S, P,
@@ -41,9 +43,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
 def _row_tree(e: torch.Tensor) -> torch.Tensor:
     """(N, R, R) -> (N,) in the kernel's order: per row the sums of its two
     column halves (columns in order), added; then the rows, padded to 16
-    with zeros, as a pairwise tree."""
+    with zeros, as a pairwise tree. Above R = 16: per row the sum of its
+    columns in order, then the rows padded to 32, as a pairwise tree."""
     N, R, _ = e.shape
-    h0 = (R + 1) // 2
+    split = R <= 16
+    h0 = (R + 1) // 2 if split else R
 
     def cols(lo, hi):
         if hi <= lo:
@@ -53,8 +57,9 @@ def _row_tree(e: torch.Tensor) -> torch.Tensor:
             acc = acc + e[:, :, c]
         return acc
 
-    rows = cols(0, h0) + cols(h0, R)
-    x = torch.cat([rows, rows.new_zeros((N, 16 - R))], dim=1)
+    rows = cols(0, h0) + cols(h0, R) if split else cols(0, R)
+    x = torch.cat([rows, rows.new_zeros((N, (16 if split else 32) - R))],
+                  dim=1)
     while x.shape[1] > 1:
         half = x.shape[1] // 2
         x = x[:, :half] + x[:, half:]

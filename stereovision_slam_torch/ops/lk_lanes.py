@@ -37,7 +37,7 @@ _MARGINS_X = (10, 14, 18, 26)
 _MARGINS_Y = (10, 10, 12, 14)
 OUT_COLS = 6     # [x, y, frozen, left_win, solvable, iterations]
 MAX_LEVELS = 8   # csrc/lk_pyramid.cu kMaxLevels
-MAX_WIN = 15     # csrc/lk_pyramid.cu kMaxWin
+MAX_WIN = 31     # csrc/lk_pyramid.cu kMaxWin
 
 launch_count = 0
 # lk_pyramid_launch(prev_ptrs, cur_ptrs, dims, levels, pts, init, masks, uv,
@@ -74,8 +74,12 @@ def level_window_shape(level: int, Hp: int, Wp: int, win: int):
 
 
 def levels_ok(pyramid, win_size: int) -> bool:
-    """Every level is large enough for its search window (the reference's
-    `_lanes_levels_ok`)."""
+    """Kernel A takes the call: the window and the depth are within its
+    instances (`MAX_WIN`, `MAX_LEVELS`), and every level is large enough
+    for its search window (the reference's `_lanes_levels_ok`). Where not,
+    `lk.track_batched` takes the per-level route."""
+    if not (1 <= win_size <= MAX_WIN and 1 <= len(pyramid) <= MAX_LEVELS):
+        return False
     pad = win_size // 2 + 2
     s8 = _round_up(win_size + 1, 8)
     for lv in pyramid:

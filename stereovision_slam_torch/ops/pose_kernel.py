@@ -16,6 +16,16 @@ again, which are the values a second pass would compute from the same
 inputs. The plain version runs that schedule too (a test holds it bit for
 bit to the two-pass schedule).
 
+Both can write their decisions into a `trace` dict: "acc" ([B,] S, rounds,
+iters) bool, each step's acceptance, and "lev" ([B,] S, rounds, 2, F) bool,
+each round's inlier set after its re-levelling. The plain version can also
+`follow` such a trace, taking those decisions where its own would differ,
+and then reports how close each of its own differing decisions was to a
+tie. An accepted step compares two float32 sums of some hundred terms,
+and re-levelling compares each chi2 with its threshold: where the two
+sides are a few ulps apart, the kernel and the plain version may decide
+differently, and a decision taken differently moves every later step.
+
 `pose_lm` launches the kernel on a CUDA tensor and runs `pose_lm_plain` on a
 CPU tensor. Both take an optional leading stream axis B (multi-stream
 serving, where the reference vmaps the solve): one launch covers every
@@ -32,13 +42,12 @@ import torch
 from stereovision_slam_torch.geometry import se3
 from stereovision_slam_torch.ops import _cuda
 
-MAX_POINTS = 1024
-MAX_STARTS = 8
+MAX_STARTS = 8     # csrc/pose_lm.cu kMaxStarts; any number of points
 launch_count = 0
 # pose_lm_launch(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, T_all, inl_all,
-#                cost_all, T_best, inl_best, n_best, B, F, S, rounds, iters,
-#                chi2_th, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float]
+#                cost_all, T_best, inl_best, n_best, tr_acc, tr_lev, B, F, S,
+#                rounds, iters, chi2_th, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
@@ -66,11 +75,19 @@ def camera_block(cam_left, cam_right) -> torch.Tensor:
 
 
 def pose_lm_plain(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *,
-                  chi2_th: float, rounds: int, iters: int) -> PoseSolve:
+                  chi2_th: float, rounds: int, iters: int,
+                  trace: dict | None = None,
+                  follow: dict | None = None) -> PoseSolve:
     """Plain PyTorch version of the kernel, all streams and starts at once.
 
     camp (2, 16); pts ([B,] F, 3); uv_l, uv_r ([B,] F, 2); valid_l, valid_r
-    ([B,] F) bool; T0 ([B,] S, 3, 4). Returns a `PoseSolve`."""
+    ([B,] F) bool; T0 ([B,] S, 3, 4). Returns a `PoseSolve`. With `trace`,
+    writes the decisions taken into it ("acc", "lev", as the kernel does);
+    with `follow` (such a trace), takes its decisions, and `trace` also
+    gets, over the decisions where its own differ, their number
+    ("acc_flips", "lev_flips") and their largest distance from a tie
+    ("acc_tie": |cost_N - cost_T| / max(|cost_T|, 1); "lev_tie": |chi2 /
+    threshold - 1|), 0 where none differ."""
     single = pts.dim() == 2
     if single:
         pts, uv_l, uv_r, valid_l, valid_r, T0 = (
@@ -156,23 +173,55 @@ def pose_lm_plain(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *,
 
     T = T0.reshape(B * S, 3, 4)
     inlier = valid
+    if trace is not None:
+        acc_t = torch.zeros((B * S, rounds, iters), dtype=torch.bool,
+                            device=T.device)
+        lev_t = torch.zeros((B * S, rounds) + valid.shape[1:],
+                            dtype=torch.bool, device=T.device)
+        lev_t[:, 0] = valid
+    ties = {"acc_flips": 0, "acc_tie": 0.0, "lev_flips": 0, "lev_tie": 0.0}
+
+    def take(kind, own, rnd, it, gap):
+        """The followed decision where there is one, and the tie count
+        (`gap()`: each decision's distance from a tie)."""
+        if follow is None:
+            return own
+        want = follow[kind].to(own.device).reshape(
+            (B * S, rounds) + own.shape[1:] + ((iters,) if kind == "acc"
+                                               else ()))
+        want = want[:, rnd, ..., it] if kind == "acc" else want[:, rnd]
+        differ = want != own
+        if bool(differ.any()):
+            ties[f"{kind}_flips"] += int(differ.sum())
+            ties[f"{kind}_tie"] = max(ties[f"{kind}_tie"],
+                                      float(gap()[differ].max()))
+        return want
+
     for rnd in range(rounds):
         if rnd > 0:       # re-level on the previous round's threshold
             lev = float(2 ** max(rounds - 1 - rnd, 0))
-            inlier = valid & (chi2_at(T) <= chi2_th * lev)
+            c_lev = chi2_at(T)
+            inlier = take("lev", valid & (c_lev <= chi2_th * lev), rnd, None,
+                          lambda: (c_lev / (chi2_th * lev) - 1.0).abs())
+            if trace is not None:
+                lev_t[:, rnd] = inlier
         round_th = float(torch.tensor(chi2_th * float(2 ** (rounds - 1 - rnd)),
                                       dtype=f32))
         robust_th = round_th if rnd < rounds - 1 else None
         H, b, cost_T = normal_eq(T, inlier, robust_th)
         lam = torch.full((B * S,), 1e-6, dtype=f32, device=T.device)
-        for _ in range(iters):
+        for it in range(iters):
             diag = torch.diagonal(H, dim1=-2, dim2=-1)
             Hd = H + torch.diag_embed(lam[:, None] * diag + 1e-10)
             L, _ = torch.linalg.cholesky_ex(Hd)
             dx = torch.cholesky_solve(-b[..., None], L)[..., 0]
             T_new = se3.se3_compose(se3.se3_exp(dx), T)
             H_new, b_new, cost_N = normal_eq(T_new, inlier, robust_th)
-            better = cost_N < cost_T
+            better = take("acc", cost_N < cost_T, rnd, it,
+                          lambda: ((cost_N - cost_T).abs()
+                                   / cost_T.abs().clamp(min=1.0)))
+            if trace is not None:
+                acc_t[:, rnd, it] = better
             T = torch.where(better[:, None, None], T_new, T)
             H = torch.where(better[:, None, None], H_new, H)
             b = torch.where(better[:, None], b_new, b)
@@ -192,20 +241,28 @@ def pose_lm_plain(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *,
     out = PoseSolve(T_all, inl_all, cost, T_all[rows, best],
                     inl.reshape(B, -1),
                     inl[:, 0].sum(dim=-1).to(torch.int32))
+    if trace is not None:
+        lead = () if single else (B,)
+        trace["acc"] = acc_t.reshape(lead + (S, rounds, iters))
+        trace["lev"] = lev_t.reshape(lead + (S,) + lev_t.shape[1:])
+        if follow is not None:
+            trace.update(ties)
     return PoseSolve(*(o[0] for o in out)) if single else out
 
 
 def pose_lm(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *, chi2_th: float,
-            rounds: int, iters: int) -> PoseSolve:
+            rounds: int, iters: int, trace: dict | None = None) -> PoseSolve:
     """All S starts of the LM schedule and the best of them, for one stream
     or a leading axis of B streams: the CUDA kernel (one block per stream)
     on a CUDA tensor, `pose_lm_plain` on a CPU tensor. Same signature and
     outputs as `pose_lm_plain`. The kernel takes S <= MAX_STARTS starts,
-    F <= MAX_POINTS points and rounds >= 1."""
+    any number F of points (staged in shared memory up to 1024) and
+    rounds >= 1. With `trace`, the kernel also writes its decisions there,
+    as `pose_lm_plain` does."""
     kw = dict(chi2_th=chi2_th, rounds=rounds, iters=iters)
     args = (camp, pts, uv_l, uv_r, valid_l, valid_r, T0)
     if pts.device.type == "cpu":
-        return pose_lm_plain(*args, **kw)
+        return pose_lm_plain(*args, **kw, trace=trace)
     if pts.device.type != "cuda":
         raise ValueError(f"pose_lm: unsupported device {pts.device}")
     lead = pts.shape[:-2]
@@ -223,10 +280,9 @@ def pose_lm(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *, chi2_th: float,
                              f"aligned {dtype} {shape} tensor on {pts.device}")
     if len(lead) > 1:
         raise ValueError("pose_lm: at most one stream axis")
-    if F > MAX_POINTS:
-        raise ValueError(f"pose_lm: at most {MAX_POINTS} points, got {F}")
     if not 1 <= S <= MAX_STARTS:
-        raise ValueError(f"pose_lm: 1 to {MAX_STARTS} starts, got {S}")
+        raise ValueError(f"pose_lm: the kernel takes 1 to {MAX_STARTS} "
+                         f"starts (MAX_STARTS), got {S}")
     if rounds < 1:
         raise ValueError(f"pose_lm: at least one round, got {rounds}")
     dev = pts.device
@@ -237,11 +293,19 @@ def pose_lm(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *, chi2_th: float,
         T=torch.empty((*lead, 3, 4), dtype=f32, device=dev),
         inlier=torch.empty((*lead, 2 * F), dtype=b8, device=dev),
         n_inliers=torch.empty(lead, dtype=torch.int32, device=dev))
+    tr = (None, None)
+    if trace is not None:
+        trace["acc"] = torch.zeros((*lead, S, rounds, iters), dtype=b8,
+                                   device=dev)
+        trace["lev"] = torch.zeros((*lead, S, rounds, 2, F), dtype=b8,
+                                   device=dev)
+        tr = (trace["acc"].data_ptr(), trace["lev"].data_ptr())
     fn = _cuda.function("pose_lm", "pose_lm_launch", _ARGTYPES)
     global launch_count
     launch_count += 1
     code = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in out),
-              B, F, S, rounds, iters, float(chi2_th), _cuda.stream_handle(pts))
+              *tr, B, F, S, rounds, iters, float(chi2_th),
+              _cuda.stream_handle(pts))
     _cuda.check(code, "pose_lm")
     return out
 

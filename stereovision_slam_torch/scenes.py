@@ -157,3 +157,17 @@ def circuit(T: int = 120, H: int = 188, W: int = 620, device="cpu"):
         device=device)
     return (lefts.cpu().numpy(), rights.cpu().numpy(),
             np.asarray(poses.numpy(), np.float32), step * T, rig)
+
+
+def circuit_long(T: int = 480, H: int = 188, W: int = 620, device="cpu"):
+    """The bench's multi-lap circuit: the same arena driven at 0.35 m/frame
+    with 2 pi / 112 of yaw a frame, a lap every 112 frames, every lap a
+    loop-closure opportunity. Returns what `circuit` returns."""
+    step = 0.35
+    rig = make_stereo_rig()
+    poses = forward_motion_poses(T, step=step, yaw_rate=2 * math.pi / 112)
+    lefts, rights = render_arena_stereo_sequence(
+        poses, H=H, W=W, rig=rig, center=(0.0, 6.0), radius=25.0,
+        device=device)
+    return (lefts.cpu().numpy(), rights.cpu().numpy(),
+            np.asarray(poses.numpy(), np.float32), step * T, rig)

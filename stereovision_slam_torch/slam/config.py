@@ -20,6 +20,21 @@ class ConfigError(Exception):
     """Malformed or missing configuration."""
 
 
+# The PlaceNet loop-closure operating point, one gate set for every scene
+# (the reference's `PLACENET_LOOP_GATES`): true revisits score 0.94-1.00
+# against <= 0.61 for false argmax candidates (strong 0.65); a self-similar
+# corridor pushes 32-64 entries above 0.5 (max_weak 12); skip 24 excludes
+# trivially overlapping recent views.
+PLACENET_LOOP_GATES = dict(
+    potential_loop_strong_threshold=0.65,
+    potential_loop_weak_threshold=0.50,
+    max_num_weak_threshold=12,
+    keyframes_to_skip_in_candidate_search=24,
+    keyframes_to_ignore_after_loop=5,
+    min_num_acceptable_keypoint_match=10,
+)
+
+
 @dataclass
 class SlamConfig:
     # --- dataset ---

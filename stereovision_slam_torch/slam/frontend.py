@@ -142,6 +142,8 @@ def track_step_serving(fs: FrontendState, m: mapmod.MapState, cur_pyr,
         T_new = torch.stack([s[0] for s in solved])
         inlier2 = torch.stack([s[1] for s in solved])
         num_inliers = inlier2[:, :F].sum(dim=1).to(torch.int32)
+    # keep the pose on SO(3): the motion model below inverts by transposing
+    T_new = se3.se3_orthonormalize(T_new)
     inlier = inlier2[:, :F]
     feat_lm = torch.where(tracked & ~(use & ~inlier), fs.feat_lm,
                           torch.full_like(fs.feat_lm, -1))

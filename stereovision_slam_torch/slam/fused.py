@@ -1,10 +1,11 @@
 """The fused per-frame SLAM step and its streaming host loop (counterpart of
-`slam/fused.py` without the loop hook: the path of `FusedVisualOdometry`).
+`slam/fused.py`: the path of `FusedVisualOdometry`).
 
 Per frame: stereo pyramids, `frontend.track_step` (frame-to-frame LK, one
 batched LK for the anchored refinement and the left->right track, the
 multi-start stereo pose solve), then on a keyframe `frontend.keyframe_step`
-and `backend.optimize_window`, with the all-time archives kept on the
+and `backend.optimize_window`, then the optional keyframe hook (the loop
+closure of `slam/fused_loop.py`), with the all-time archives kept on the
 device.
 
 The reference's `lax.cond` branches (init, track, keyframe+BA, LOST
@@ -141,13 +142,23 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
                ba_iters: int = 10, num_features_init: int = 50,
                ba_max_active: int | None = 1024,
                lk_iters: int = 30, pose_rounds: int = 4, pose_iters: int = 10,
-               ba_every: int = 1, lost_recovery: bool = True, camp=None):
+               ba_every: int = 1, lost_recovery: bool = True, camp=None,
+               kf_hook=None, hook_state=None):
     """One SLAM frame. `kf_count` < 0 marks an uninitialized map (the frame
     then runs stereo initialization). `lost_recovery=False` leaves a LOST
     frame on the tracking branch (no keyframe) instead of re-initializing,
     as `batched.batched_fused_step` asks. `camp`: the rig's
-    `pose_kernel.camera_block`, as `frontend.track_step` takes it. Returns
-    (fs, ms, arc, kf_count, FrameOutputs)."""
+    `pose_kernel.camera_block`, as `frontend.track_step` takes it.
+
+    `kf_hook(hook_state, fs, ms, pyr, frame_id, kf_id, arc) -> (fs, ms,
+    hook_state)` runs on the keyframe branch only (not on the stereo
+    initialization nor the LOST re-initialization), after BA and the new
+    keyframe's odometry measurement and before the archive update, so the
+    archive records the post-hook pose and the window's relative poses are
+    refreshed from the post-hook poses (the reference's order).
+
+    Returns (fs, ms, arc, kf_count, FrameOutputs), with hook_state before
+    the outputs when a hook is given."""
     both = imops.build_pyramid_batched(torch.stack([left_img, right_img]),
                                        num_levels)
     pyr = tuple(lv[0] for lv in both)
@@ -164,6 +175,11 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
             feat_valid=torch.zeros_like(fs.feat_valid), pyr=pyr,
             ref_uv=torch.zeros_like(fs.ref_uv), ref_pyr=pyr)
 
+    def result(fs_, ms_, arc_, kfc_, out_):
+        if kf_hook is None:
+            return fs_, ms_, arc_, kfc_, out_
+        return fs_, ms_, arc_, kfc_, hook_state, out_
+
     if kf_count < 0:
         # stereo initialization; too few landmarks -> revert and retry
         ident = se3.se3_identity(fs.T_cur.dtype, fs.T_cur.device)
@@ -174,9 +190,9 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
         if ok:
             ms, arc = ms2, _record_keyframe(arc, 0, fs2.T_cur, frame_id)
         kfc = 0 if ok else -1
-        return fs2, ms, arc, kfc, FrameOutputs(
+        return result(fs2, ms, arc, kfc, FrameOutputs(
             n_inliers=n_new, n_tracked=n_r, kf_inserted=ok, kf_count=kfc,
-            pose=fs2.T_cur)
+            pose=fs2.T_cur))
 
     fs1, n_in, n_tracked = fe.track_step(
         fs, ms, pyr, cam_left, right_pyr, cam_right, chi2_th=chi2_th,
@@ -217,6 +233,9 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
                                               torch.full_like(ms2.kf_id, -1)))
             fs2 = fs2._replace(T_cur=ms2.kf_pose[newest])
         rel_new = _rel_to_prev(fs2.T_cur, kf_id, ms2, ev, arc)
+        if kf_hook is not None:
+            fs2, ms2, hook_state = kf_hook(hook_state, fs2, ms2, pyr,
+                                           frame_id, kf_id, arc)
         arc2 = _archive_eviction(arc, ev)
         arc2 = _record_keyframe(arc2, slot, fs2.T_cur, frame_id, rel_new)
         arc2 = _refresh_relative_poses(arc2, ms2)
@@ -227,7 +246,7 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
     out = FrameOutputs(n_inliers=n_in, n_tracked=n_tracked,
                        kf_inserted=want_kf or kf_count2 > kf_count,
                        kf_count=kf_count2, pose=fs_out.T_cur)
-    return fs_out, ms_out, arc2, kf_count2, out
+    return result(fs_out, ms_out, arc2, kf_count2, out)
 
 
 class FusedVisualOdometry:
@@ -293,13 +312,17 @@ class FusedVisualOdometry:
                 self.cfg.max_features,
                 imops.build_pyramid(torch.zeros_like(left),
                                     self.cfg.lk_num_levels))
-        self.fs, self.ms, self.arc, self.kf_count, out = fused_step(
-            self.fs, self.ms, self.arc, self.kf_count, left, right,
-            int(frame.frame_id), self.cam_left, self.cam_right,
-            camp=self.camp, **self._statics())
+        out = self._advance(left, right, int(frame.frame_id))
         self._fids.append(int(frame.frame_id))
         self._outs.append(out)
         return True
+
+    def _advance(self, left, right, frame_id: int) -> FrameOutputs:
+        """One `fused_step` on the state; returns the frame's outputs."""
+        self.fs, self.ms, self.arc, self.kf_count, out = fused_step(
+            self.fs, self.ms, self.arc, self.kf_count, left, right, frame_id,
+            self.cam_left, self.cam_right, camp=self.camp, **self._statics())
+        return out
 
     def run(self):
         while self.step():

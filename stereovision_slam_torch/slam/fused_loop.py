@@ -1,0 +1,388 @@
+"""Loop closure inside the fused streaming pipeline (counterpart of
+`slam/fused_loop.py`): a keyframe hook of `fused.fused_step` that embeds
+the keyframe (PlaceNet, or the weight-free thumbnail), scans every earlier
+keyframe's embedding for a candidate, matches ORB descriptors against the
+candidate's, verifies it by PnP RANSAC with the pose gates, records the
+loop edge, and on a large enough correction applies a rigid LocalFusion to
+the window and merges the duplicate landmarks; then the keyframe joins the
+loop database. The database and the edge log are fixed-capacity tensors
+indexed by keyframe id (`LoopState`, the reference's capacities and slot
+order). After the sequence `FusedLoopVisualOdometry.run_pgo` runs the
+global pose-graph optimization over the odometry and loop edges.
+
+The reference's two `lax.cond`s are host branches here: one device->host
+read of the candidate gate per keyframe and, when a candidate fires, one of
+the correction gate (`hook_reads` counts them).
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from stereovision_slam_torch.geometry import jacobians, se3
+from stereovision_slam_torch.models import mobilenet_v2 as mnv2
+from stereovision_slam_torch.models import place_net
+from stereovision_slam_torch.ops import descriptors, matching, prng
+from stereovision_slam_torch.slam import fused
+from stereovision_slam_torch.slam import map_state as mapmod
+from stereovision_slam_torch.slam.config import SlamConfig
+from stereovision_slam_torch.slam.pnp import pnp_ransac
+from stereovision_slam_torch.slam.pose_graph import (
+    PoseGraph, optimize_pose_graph, reanchor_landmarks)
+
+EMBED_DIM = mnv2.EMBED_DIM      # 1280
+
+
+class LoopState(NamedTuple):
+    """The loop-closure database and edge log, indexed by keyframe id."""
+    db_embed: torch.Tensor     # (T, 1280) L2-normalized place embeddings
+    db_desc: torch.Tensor      # (T, F, W) int32 packed ORB descriptor bits
+    db_desc_ok: torch.Tensor   # (T, F) bool
+    db_uv: torch.Tensor        # (T, F, 2) feature pixels
+    db_lm_pos: torch.Tensor    # (T, F, 3) landmark snapshot per feature
+    db_lm_has: torch.Tensor    # (T, F) bool
+    db_lm_id: torch.Tensor     # (T, F) int32 global landmark ids
+    db_lm_first: torch.Tensor  # (T, F) int32 first-observer keyframe ids
+    db_pose: torch.Tensor      # (T, 3, 4) pose when the keyframe was added
+    db_valid: torch.Tensor     # (T,) bool
+    loop_i: torch.Tensor       # (E,) int32 current keyframe id
+    loop_j: torch.Tensor       # (E,) int32 loop keyframe id
+    loop_rel: torch.Tensor     # (E, 3, 4) corrected T_i * T_j^-1
+    loop_info: torch.Tensor    # (E, 6, 6) normalized PnP information
+    n_loops: torch.Tensor      # () int32
+    last_closed: torch.Tensor  # () int32 kf id, -1 = never
+    last_score: torch.Tensor   # () float32, the latest best similarity
+    pattern: torch.Tensor      # (N_BITS, 4) descriptor sampling offsets
+
+
+def empty_loop_state(Tmax: int, F: int, max_loop_edges: int = 512,
+                     dtype=torch.float32, device="cpu") -> LoopState:
+    W = descriptors.N_WORDS
+    i32 = torch.int32
+
+    def full(shape, v, dt):
+        return torch.full(shape, v, dtype=dt, device=device)
+    return LoopState(
+        db_embed=full((Tmax, EMBED_DIM), 0.0, dtype),
+        db_desc=full((Tmax, F, W), 0, i32),
+        db_desc_ok=full((Tmax, F), False, torch.bool),
+        db_uv=full((Tmax, F, 2), 0.0, dtype),
+        db_lm_pos=full((Tmax, F, 3), 0.0, dtype),
+        db_lm_has=full((Tmax, F), False, torch.bool),
+        db_lm_id=full((Tmax, F), -1, i32),
+        db_lm_first=full((Tmax, F), -1, i32),
+        db_pose=full((Tmax, 3, 4), 0.0, dtype),
+        db_valid=full((Tmax,), False, torch.bool),
+        loop_i=full((max_loop_edges,), -1, i32),
+        loop_j=full((max_loop_edges,), -1, i32),
+        loop_rel=full((max_loop_edges, 3, 4), 0.0, dtype),
+        loop_info=torch.eye(6, dtype=dtype, device=device)[None].repeat(
+            max_loop_edges, 1, 1),
+        n_loops=full((), 0, i32),
+        last_closed=full((), -1, i32),
+        last_score=full((), 0.0, dtype),
+        pattern=torch.as_tensor(descriptors._make_pattern(), device=device),
+    )
+
+
+def embed(place_params, left_img: torch.Tensor) -> torch.Tensor:
+    """The keyframe's place embedding: PlaceNet for its parameters ("convs"),
+    the thumbnail without parameters. MobileNet-V2 parameters ("stem") are
+    refused: its forward is not ported."""
+    if place_params is None:
+        return mnv2.embed_image_thumbnail(left_img)
+    if "convs" in place_params:
+        return place_net.embed_image(place_params, left_img)
+    raise NotImplementedError("the MobileNet-V2 embedder is not ported; "
+                              "pass PlaceNet parameters or none")
+
+
+def _loop_hook(ls: LoopState, fs, ms, pyr, frame_id, kf_id: int, arc, *,
+               cam_left, place_params, skip: int, cooldown: int,
+               strong: float, weak: float, max_weak: int, min_match: int,
+               min_pose_diff: float, max_pose_diff: float,
+               max_loop_dist: float, num_hypotheses: int, stats=None):
+    """The keyframe-rate loop-closure pipeline (the reference's
+    `_loop_hook`); `fused.fused_step`'s `kf_hook` with the gates bound.
+    `arc` is part of the hook contract and unused: the candidate's tables
+    are its insertion-time snapshots, as in the reference. `stats`, a dict,
+    counts the hook's device->host reads under "host_reads". Returns (fs,
+    ms, ls)."""
+    left_img = pyr[0]
+    dev = left_img.device
+    Tdb = ls.db_embed.shape[0]
+
+    def host_bool(x) -> bool:
+        if stats is not None:
+            stats["host_reads"] = stats.get("host_reads", 0) + 1
+        return bool(x)
+
+    # 1. the place embedding and 2. the keyframe's ORB descriptors
+    emb = embed(place_params, left_img)
+    desc, desc_ok = descriptors.compute(left_img, fs.feat_uv, fs.feat_valid,
+                                        pattern=ls.pattern)
+
+    # 3. the candidate scan, one matvec over the database
+    ids = torch.arange(Tdb, device=dev)
+    mask = ls.db_valid & (kf_id - ids >= skip)
+    sims = torch.where(mask, ls.db_embed @ emb,
+                       torch.full((), float("-inf"), device=dev))
+    best = torch.argmax(sims)
+    best_sim = sims[best]
+    weak_count = torch.sum(sims > weak)
+    in_cooldown = (ls.last_closed >= 0) & (kf_id - ls.last_closed <= cooldown)
+    has_any = torch.any(mask)
+    candidate_ok = (has_any & ~in_cooldown & (best_sim >= strong)
+                    & (weak_count <= max_weak))
+    ls = ls._replace(last_score=torch.clamp(torch.where(
+        has_any, best_sim, torch.zeros_like(best_sim)), min=0.0).to(
+            ls.last_score.dtype))
+
+    # 4. geometric verification and fusion, when a candidate fires
+    if host_bool(candidate_ok):
+        idx, _, good = matching.match(ls.db_desc[best], ls.db_desc_ok[best],
+                                      desc, desc_ok)
+        usable = good & ls.db_lm_has[best]
+        # the candidate's insertion-time landmark and pose snapshots
+        cand_pos, cand_pose = ls.db_lm_pos[best], ls.db_pose[best]
+        n_match = torch.sum(usable)
+        uv_m = fs.feat_uv[torch.clamp(idx, min=0)]
+        uniform = prng.uniform(kf_id, (num_hypotheses, cand_pos.shape[0]),
+                               1e-9, 1.0, device=dev)
+        T_corr, inl, n_in = pnp_ransac(cam_left, cand_pos, uv_m, usable,
+                                       uniform, reproj_threshold=5.991)
+        loop_rel = se3.se3_compose(T_corr, se3.se3_inverse(cand_pose))
+
+        # the edge's information: the PnP Gauss-Newton Hessian over the
+        # final inliers, carried into the pose graph's residual tangent
+        # (Adj(meas)^T H Adj(meas)), normalized to a largest eigenvalue of 1
+        _, J, _, p_cam = jacobians.reprojection_residual_jac(
+            cam_left, T_corr, cand_pos, uv_m)
+        w = (inl & (p_cam[..., 2] > 1e-6)).to(J.dtype)
+        H_pnp = torch.einsum("nab,nac,n->bc", J, J, w)
+        A = se3.se3_adjoint(loop_rel)
+        H_res = A.T @ H_pnp @ A
+        v = torch.ones((6,), dtype=H_res.dtype, device=dev)
+        for _ in range(8):                  # power iteration for lambda_max
+            v = H_res @ v
+            v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-20)
+        info = H_res / torch.clamp(v @ (H_res @ v), min=1e-12)
+        pose_diff = se3.se3_distance(fs.T_cur, T_corr)
+        accept = ((n_match >= min_match) & (n_in >= min_match)
+                  & (torch.linalg.vector_norm(se3.se3_log(loop_rel))
+                     <= max_loop_dist)
+                  & (pose_diff <= max_pose_diff)
+                  & torch.all(torch.isfinite(T_corr)))
+        need_corr = accept & (pose_diff > min_pose_diff)
+
+        # record the loop edge
+        Emax = ls.loop_i.shape[0]
+        e = torch.where(accept, torch.clamp(ls.n_loops, 0, Emax - 1),
+                        torch.full_like(ls.n_loops, Emax)).reshape(1)
+        sd = mapmod.scatter_drop
+        kid = torch.tensor(kf_id, dtype=torch.int32, device=dev)
+        ls = ls._replace(
+            loop_i=sd(ls.loop_i, e, kid.reshape(1)),
+            loop_j=sd(ls.loop_j, e, best.to(torch.int32).reshape(1)),
+            loop_rel=sd(ls.loop_rel, e, loop_rel[None]),
+            loop_info=sd(ls.loop_info, e, info[None]),
+            n_loops=ls.n_loops + accept.to(torch.int32),
+            last_closed=torch.where(accept, kid, ls.last_closed))
+
+        if host_bool(need_corr):
+            # rigid LocalFusion: one world transform D for the window
+            D = se3.se3_compose(se3.se3_inverse(fs.T_cur), T_corr)
+            Dinv = se3.se3_inverse(D)
+            ms = ms._replace(
+                kf_pose=torch.where(ms.kf_valid[:, None, None],
+                                    se3.se3_compose(ms.kf_pose, D[None]),
+                                    ms.kf_pose),
+                lm_pos=torch.where(ms.lm_valid[:, None],
+                                   se3.se3_apply(Dinv[None], ms.lm_pos),
+                                   ms.lm_pos))
+            fs = fs._replace(T_cur=se3.se3_compose(fs.T_cur, D))
+            # duplicate-landmark merge against the loop keyframe
+            kf_slot = torch.argmax(torch.where(
+                ms.kf_valid, ms.kf_id, torch.full_like(ms.kf_id, -1)))
+            ms, new_feat_lm = mapmod.merge_loop_landmarks(
+                ms, fs.feat_lm, fs.feat_valid, kf_slot, idx, usable & inl,
+                cand_pos, ls.db_lm_id[best], ls.db_lm_first[best])
+            fs = fs._replace(feat_lm=new_feat_lm)
+
+    # 5. this keyframe joins the database (after any correction)
+    L = ms.lm_pos.shape[0]
+    safe = torch.clamp(fs.feat_lm, 0, L - 1).to(torch.int64)
+    lm_has = fs.feat_valid & (fs.feat_lm >= 0) & ms.lm_valid[safe]
+    slot = torch.tensor(min(max(kf_id, 0), Tdb - 1), device=dev)
+    none = torch.full_like(fs.feat_lm, -1)
+    sr = mapmod.set_row
+    ls = ls._replace(
+        db_embed=sr(ls.db_embed, slot, emb),
+        db_desc=sr(ls.db_desc, slot, desc),
+        db_desc_ok=sr(ls.db_desc_ok, slot, desc_ok),
+        db_uv=sr(ls.db_uv, slot, fs.feat_uv),
+        db_lm_pos=sr(ls.db_lm_pos, slot, ms.lm_pos[safe]),
+        db_lm_has=sr(ls.db_lm_has, slot, lm_has),
+        db_lm_id=sr(ls.db_lm_id, slot,
+                    torch.where(lm_has, ms.lm_id[safe], none)),
+        db_lm_first=sr(ls.db_lm_first, slot,
+                       torch.where(lm_has, ms.lm_first_kf[safe], none)),
+        db_pose=sr(ls.db_pose, slot, fs.T_cur),
+        db_valid=sr(ls.db_valid, slot, True),
+    )
+    return fs, ms, ls
+
+
+class LoopEdgeRecord(NamedTuple):
+    kf_id: int
+    loop_kf_id: int
+    relative_pose: np.ndarray
+    info: np.ndarray | None = None   # (6, 6) normalized PnP information
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+class FusedLoopVisualOdometry(fused.FusedVisualOdometry):
+    """Streaming SLAM with loop closure in the fused step: tracking,
+    keyframes, BA, the loop hook, and after the sequence `run_pgo`, the
+    global pose-graph optimization over the odometry and loop edges.
+
+    place_params: PlaceNet's parameters (`models.place_net.get_params`),
+    or None for the thumbnail embedder."""
+
+    def __init__(self, cfg: SlamConfig, dataset, place_params=None,
+                 max_loop_edges: int = 512, num_hypotheses: int = 256, **kw):
+        super().__init__(cfg, dataset, **kw)
+        self.place_params = place_params
+        self.max_loop_edges = max_loop_edges
+        self.num_hypotheses = num_hypotheses
+        self.ls: LoopState | None = None
+        self.hook_stats: dict = {"host_reads": 0}
+
+    def initialize(self):
+        super().initialize()
+        self.ls = empty_loop_state(self.Tmax, self.cfg.max_features,
+                                   self.max_loop_edges, device=self.device)
+        self.hook_stats = {"host_reads": 0}
+
+    @property
+    def hook_reads(self) -> int:
+        """Device->host reads the loop hook made so far."""
+        return self.hook_stats["host_reads"]
+
+    def _hook(self):
+        cfg = self.cfg
+        return partial(
+            _loop_hook, cam_left=self.cam_left, place_params=self.place_params,
+            skip=cfg.keyframes_to_skip_in_candidate_search,
+            cooldown=cfg.keyframes_to_ignore_after_loop,
+            strong=cfg.potential_loop_strong_threshold,
+            weak=cfg.potential_loop_weak_threshold,
+            max_weak=cfg.max_num_weak_threshold,
+            min_match=cfg.min_num_acceptable_keypoint_match,
+            min_pose_diff=cfg.min_pose_differnece_between_old_new,
+            max_pose_diff=cfg.max_pose_differnece_between_old_new,
+            max_loop_dist=cfg.max_pose_distance_between_loop_keyframes,
+            num_hypotheses=self.num_hypotheses, stats=self.hook_stats)
+
+    def _advance(self, left, right, frame_id: int):
+        (self.fs, self.ms, self.arc, self.kf_count, self.ls,
+         out) = fused.fused_step(
+            self.fs, self.ms, self.arc, self.kf_count, left, right, frame_id,
+            self.cam_left, self.cam_right, camp=self.camp, **self._statics(),
+            kf_hook=self._hook(), hook_state=self.ls)
+        return out
+
+    def loop_edges(self) -> list[LoopEdgeRecord]:
+        """The edge log on the host."""
+        n = int(self.ls.n_loops)
+        i, j, rel, info = (t[:n].cpu().numpy() for t in (
+            self.ls.loop_i, self.ls.loop_j, self.ls.loop_rel,
+            self.ls.loop_info))
+        return [LoopEdgeRecord(int(a), int(b), r, w)
+                for a, b, r, w in zip(i, j, rel, info)]
+
+    def run_pgo(self, iters: int = 22):
+        """Global pose-graph optimization over the whole trajectory: the
+        recorded per-keyframe odometry measurements (`arc.kf_rel`, refreshed
+        after BA) between consecutive keyframes, with unit information, and
+        the loop edges with their PnP information; poses and edges padded
+        to multiples of 64 as in the reference. Keyframe poses are written
+        back and landmarks re-anchored through their first observing
+        keyframe (`pgo_keyframes`, `pgo_landmarks`). Returns {frame_id:
+        (3, 4) pose}."""
+        edges = self.loop_edges()
+        keyframes, landmarks, _ = self.drain()
+        kf_ids = sorted(keyframes)
+        if len(kf_ids) < 3 or not edges:
+            return {fid: pose for fid, pose in keyframes.values()}
+        slot_of = {k: i for i, k in enumerate(kf_ids)}
+        T = len(kf_ids)
+        poses = np.stack([keyframes[k][1] for k in kf_ids]).astype(np.float32)
+        rel_tab = self.arc.kf_rel.cpu().numpy()
+        eye6 = np.eye(6, dtype=np.float32)
+        ei, ej, meas, infos = [], [], [], []
+        # keyframe ids are consecutive here (the reference also handles
+        # gaps that only its checkpoints make)
+        for k_prev, k in zip(kf_ids, kf_ids[1:]):
+            meas.append(rel_tab[k])
+            ei.append(slot_of[k])
+            ej.append(slot_of[k_prev])
+            infos.append(eye6)
+        for e in edges:
+            if e.kf_id in slot_of and e.loop_kf_id in slot_of:
+                ei.append(slot_of[e.kf_id])
+                ej.append(slot_of[e.loop_kf_id])
+                meas.append(e.relative_pose)
+                infos.append(np.asarray(e.info, np.float32)
+                             if e.info is not None else eye6)
+        Tp, E = _round_up(T, 64), len(ei)
+        Ep = _round_up(E, 64)
+        poses_p = np.zeros((Tp, 3, 4), np.float32)
+        poses_p[:T] = poses
+        poses_p[T:, :, :3] = np.eye(3, dtype=np.float32)
+        meas_p = np.zeros((Ep, 3, 4), np.float32)
+        meas_p[:E] = np.stack(meas)
+        meas_p[E:, :, :3] = np.eye(3, dtype=np.float32)
+        info_p = np.tile(eye6[None], (Ep, 1, 1))
+        info_p[:E] = np.stack(infos)
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+        g = PoseGraph(
+            poses=t(poses_p), pose_valid=t(np.arange(Tp) < T),
+            edge_i=t(np.pad(np.asarray(ei, np.int64), (0, Ep - E))),
+            edge_j=t(np.pad(np.asarray(ej, np.int64), (0, Ep - E))),
+            edge_meas=t(meas_p), edge_valid=t(np.arange(Ep) < E),
+            edge_info=t(info_p))
+        new_poses_p = optimize_pose_graph(g, iters=iters)
+        new_poses = new_poses_p[:T].cpu().numpy()
+        self.pgo_keyframes = {k: (keyframes[k][0], new_poses[s])
+                              for k, s in slot_of.items()}
+        if landmarks:
+            lm_ids = list(landmarks)
+            first_tab = self._lm_first_table()
+            first = np.array([slot_of.get(int(first_tab[i]), -1)
+                              for i in lm_ids], np.int64)
+            new_lm = reanchor_landmarks(
+                t(np.stack([landmarks[i] for i in lm_ids])), t(first),
+                g.poses, new_poses_p, g.pose_valid).cpu().numpy()
+            self.pgo_landmarks = dict(zip(lm_ids, new_lm))
+        return {fid: pose for fid, pose in self.pgo_keyframes.values()}
+
+    def _lm_first_table(self) -> np.ndarray:
+        """First observing keyframe id by global landmark id: the archive's,
+        with the window's landmarks over it."""
+        first = self.arc.lm_first_kf.cpu().numpy().copy()
+        lm_id, valid, lm_first = (t.cpu().numpy() for t in (
+            self.ms.lm_id, self.ms.lm_valid, self.ms.lm_first_kf))
+        ok = valid & (lm_id >= 0) & (lm_id < len(first))
+        first[lm_id[ok]] = lm_first[ok]
+        return first

@@ -209,6 +209,109 @@ def add_landmarks(m: MapState, positions, create, first_kf_id):
     return m, slots.to(i32)
 
 
+def add_drop(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """x.at[idx].add(val, mode="drop") for idx in [0, len(x)], where len(x)
+    marks a dropped update; repeated indices accumulate."""
+    ext = torch.cat([x, x[:1]])
+    val = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+    return ext.index_add(0, idx.to(torch.int64), val)[:-1]
+
+
+def merge_loop_landmarks(m: MapState, feat_lm, feat_valid, kf_slot,
+                         match_idx, usable, cand_lm_pos, cand_lm_id,
+                         cand_lm_first):
+    """Duplicate-landmark merge during loop fusion (the reference's
+    `merge_loop_landmarks`). For each good match (loop-candidate feature i
+    -> current feature match_idx[i], usable[i]) the loop keyframe's
+    landmark replaces the current keyframe's duplicate, in priority order:
+    relink to the loop landmark's slot where it is still in the table
+    (a duplicate that loses its last observation leaves the table);
+    rewrite the linked slot in place where the feature has a landmark;
+    insert into a free slot and link where it has none. Of several
+    candidate features matching one current feature, the lowest index
+    wins. Apply after the rigid pose correction.
+
+    feat_lm / feat_valid (F,); kf_slot () the newest keyframe's window
+    slot; match_idx, usable (Fc,); cand_lm_pos (Fc, 3); cand_lm_id,
+    cand_lm_first (Fc,). Returns (new_map, new_feat_lm (F,) int32)."""
+    L = m.lm_valid.shape[0]
+    F = feat_lm.shape[0]
+    Fc = match_idx.shape[0]
+    dev = feat_lm.device
+    match_idx = match_idx.to(torch.int64)
+    feat_lm = feat_lm.to(torch.int64)
+
+    # unique targets: the lowest candidate index per current feature
+    idx_i = torch.arange(Fc, device=dev)
+    tgt0 = torch.where(usable, match_idx, torch.full_like(match_idx, F))
+    first_i = torch.full((F + 1,), Fc, dtype=torch.int64, device=dev)
+    first_i = first_i.scatter_reduce(
+        0, tgt0, torch.where(usable, idx_i, torch.full_like(idx_i, Fc)),
+        reduce="amin")
+    usable = usable & (first_i[torch.clamp(tgt0, 0, F)] == idx_i)
+
+    # candidate landmark data on the current-feature slots
+    tgt = torch.where(usable, match_idx, torch.full_like(match_idx, F))
+    m_pos = scatter_drop(torch.zeros((F, 3), dtype=m.lm_pos.dtype,
+                                     device=dev), tgt, cand_lm_pos)
+    m_id = scatter_drop(torch.full((F,), -1, dtype=i32, device=dev), tgt,
+                        cand_lm_id)
+    m_first = scatter_drop(torch.full((F,), -1, dtype=i32, device=dev), tgt,
+                           cand_lm_first)
+    m_has = scatter_drop(torch.zeros((F,), dtype=torch.bool, device=dev),
+                         tgt, True) & feat_valid & (m_id >= 0)
+
+    has_r = m.obs_has_r[kf_slot]
+    obs_contrib = 1 + has_r.to(i32)          # per current feature
+
+    # the loop landmark is still in the table -> relink to its slot
+    eq = (m.lm_id[None, :] == m_id[:, None]) & m.lm_valid[None, :]  # (F, L)
+    exist_slot = torch.where(m_has & eq.any(1),
+                             torch.argmax(eq.to(torch.int32), 1),
+                             torch.full_like(feat_lm, -1))
+    relink = m_has & (exist_slot >= 0) & (feat_lm != exist_slot)
+    zero = torch.zeros_like(obs_contrib)
+    old_slot = torch.where(relink & (feat_lm >= 0), feat_lm,
+                           torch.full_like(feat_lm, L))
+    gain_slot = torch.where(relink, exist_slot, torch.full_like(feat_lm, L))
+    new_count = add_drop(add_drop(
+        m.lm_obs_count, gain_slot, torch.where(relink, obs_contrib, zero)),
+        old_slot, torch.where(relink, -obs_contrib, zero))
+    new_count = torch.clamp(new_count, min=0)
+    # a duplicate that lost its last observation is merged away
+    m = m._replace(
+        lm_obs_count=new_count,
+        lm_valid=m.lm_valid & ~((new_count == 0) & (m.lm_obs_count > 0)))
+
+    # not in the table, feature linked -> rewrite the linked slot in place
+    repl = m_has & (exist_slot < 0) & (feat_lm >= 0)
+    slot_a = torch.where(repl, feat_lm, torch.full_like(feat_lm, L))
+    m = m._replace(lm_pos=scatter_drop(m.lm_pos, slot_a, m_pos),
+                   lm_id=scatter_drop(m.lm_id, slot_a, m_id),
+                   lm_first_kf=scatter_drop(m.lm_first_kf, slot_a, m_first))
+
+    # not in the table, feature unlinked -> insert and link
+    ins = m_has & (exist_slot < 0) & (feat_lm < 0)
+    free_slots = nonzero_static(~m.lm_valid, F)
+    order = torch.cumsum(ins.to(torch.int64), 0) - 1
+    slots = torch.where(ins, free_slots[torch.clamp(order, 0, F - 1)],
+                        torch.full_like(order, -1))
+    ok = ins & (slots >= 0)
+    safe = torch.where(ok, slots, torch.full_like(slots, L))
+    m = m._replace(
+        lm_pos=scatter_drop(m.lm_pos, safe, m_pos),
+        lm_valid=scatter_drop(m.lm_valid, safe, True),
+        lm_id=scatter_drop(m.lm_id, safe, m_id),
+        lm_first_kf=scatter_drop(m.lm_first_kf, safe, m_first),
+        lm_obs_count=scatter_drop(m.lm_obs_count, safe,
+                                  torch.where(ok, obs_contrib, zero)))
+    new_link = torch.where(ok, slots, torch.where(relink, exist_slot,
+                                                  feat_lm)).to(i32)
+    row = torch.where(ok | relink, new_link, m.obs_lm[kf_slot])
+    m = m._replace(obs_lm=set_row(m.obs_lm, kf_slot, row))
+    return m, new_link
+
+
 def active_counts(m: MapState):
     """(keyframes, landmarks) in the active window."""
     return m.kf_valid.sum(), m.lm_valid.sum()

@@ -107,3 +107,14 @@ def solve_pose_multi(cam: Camera, T_inits, points, obs_uv, valid,
     best = torch.argmin(costs)
     inlier = inliers[best]
     return Ts[best], inlier, inlier.sum().to(torch.int32)
+
+
+def solve_pose(cam: Camera, T_init, points, obs_uv, valid,
+               chi2_th: float = 5.991, rounds: int = 4, iters: int = 10):
+    """Single-start pose solve from 2-D/3-D correspondences in one camera
+    (the reference's `solve_pose`; PnP RANSAC's refinement). T_init (3, 4);
+    points (N, 3); obs_uv (N, 2); valid (N,). Returns (T_opt (3, 4),
+    inlier (N,) bool, num_inliers () int32)."""
+    T, inlier = _lm_rounds(cam, T_init[None], points, obs_uv, valid,
+                           chi2_th, rounds, iters)
+    return T[0], inlier[0], inlier[0].sum().to(torch.int32)

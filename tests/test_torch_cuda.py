@@ -84,6 +84,32 @@ def test_lk_level_kernel_matches_plain(dev):
                     torch.stack([valid, valid]),), **kw)
 
 
+@pytest.mark.parametrize("win", [21, 31])
+def test_lk_kernel_wide_windows_match_plain(dev, win):
+    """Kernel A at OpenCV's default window (21) and at its largest (31, a
+    block above 48 KB of shared memory) on the circuit's pyramids, held as
+    above; `lk.track(win_size=21)` takes the lanes route, one launch, and
+    agrees with the plain level loop."""
+    lefts, rights, _, _, _ = scenes.circuit(device=dev)
+    prev, cur, right = (imops.build_pyramid(torch.as_tensor(f, device=dev), 4)
+                        for f in (lefts[0], lefts[1], rights[1]))
+    pts, valid, _ = gftt.detect(prev[0], 256)
+    kw = dict(win_size=win, max_iters=12)
+    _hold_kernel_a(([torch.stack([p, p]) for p in prev],
+                    [torch.stack([c, r]) for c, r in zip(cur, right)],
+                    torch.stack([pts, pts]), torch.stack([pts, pts - 10.0]),
+                    torch.stack([valid, valid])), **kw)
+    before = lk_lanes.launch_count
+    uv, st = lk.track(prev, cur, pts, mask=valid, **kw)
+    assert lk_lanes.launch_count == before + 1
+    uv_p, st_p = lk_lanes.track_grouped_lanes(
+        [lv[None] for lv in prev], [lv[None] for lv in cur], pts[None],
+        pts[None], valid[None], level_fn=lk_lanes.lk_level_plain, **kw)
+    assert torch.equal(st, st_p[0]) and int(st.sum()) > 150
+    torch.testing.assert_close(uv, uv_p[0], rtol=0, atol=1e-3,
+                               equal_nan=True)
+
+
 def _pose_streams(dev, B, S, F=200, seed=0):
     """Kernel B's inputs for B streams of F points (not a multiple of the
     kernel's 128 threads per start) with pixel noise and gross outliers,
@@ -115,18 +141,21 @@ def _pose_streams(dev, B, S, F=200, seed=0):
             uv_l.contiguous(), uv_r.contiguous(), vl, vr, T0.contiguous())
 
 
-@pytest.mark.parametrize("B,S", [(1, 3), (4, 3), (1, 8)])
-def test_pose_kernel_matches_plain(dev, B, S):
+@pytest.mark.parametrize("B,S,F", [(1, 3, 200), (4, 3, 200), (1, 8, 200),
+                                   (1, 3, 1025), (1, 3, 2048), (2, 8, 2048)])
+def test_pose_kernel_matches_plain(dev, B, S, F):
     """Kernel B against its plain version on every (stream, start), after
     one LM step (the starts still apart) and after 3 x 6: T within 1e-4,
     inliers equal, costs within 1e-4; a start with no point in front of the
     cameras keeps no inlier; of two tied starts the first is chosen, and the
-    chosen outputs are the kernel's own per-start outputs there."""
-    args = _pose_streams(dev, B, S)
+    chosen outputs are the kernel's own per-start outputs there. F above
+    1024 takes the kernel's unstaged layout (observations read from global
+    memory, inlier flags in the output)."""
+    args = _pose_streams(dev, B, S, F)
     for kw in (dict(rounds=1, iters=1), dict(rounds=3, iters=6)):
         k = pk.pose_lm(*args, chi2_th=5.991, **kw)
         p = pk.pose_lm_plain(*args, chi2_th=5.991, **kw)
-        assert k.T_all.shape == (B, S, 3, 4) and k.inlier.shape == (B, 400)
+        assert k.T_all.shape == (B, S, 3, 4) and k.inlier.shape == (B, 2 * F)
         torch.testing.assert_close(k.T_all, p.T_all, rtol=0, atol=1e-4)
         assert torch.equal(k.inl_all, p.inl_all)
         torch.testing.assert_close(k.cost, p.cost, rtol=1e-4, atol=1e-3)
@@ -144,13 +173,37 @@ def test_pose_kernel_matches_plain(dev, B, S):
 
 def test_pose_kernel_over_streams_matches_plain(dev):
     """B = 2 streams x S = 3 starts in one launch, held as above."""
-    test_pose_kernel_matches_plain(dev, 2, 3)
+    test_pose_kernel_matches_plain(dev, 2, 3, 200)
+
+
+@pytest.mark.parametrize("B,S,F", [(1, 3, 200), (2, 8, 2048)])
+def test_pose_kernel_trace(dev, B, S, F):
+    """Kernel B with `trace`: the same outputs, bit for bit, as without;
+    its decisions in the plain version's layout; the plain version
+    following them lands on the kernel's poses within 1e-4, and any
+    decision of its own that differs is a float32 tie (chip_smoke.py's
+    POSE_ACC_TIE and POSE_LEVEL_TIE)."""
+    args = _pose_streams(dev, B, S, F)
+    kw = dict(chi2_th=5.991, rounds=3, iters=6)
+    plain_out = pk.pose_lm(*args, **kw)
+    tr = {}
+    traced = pk.pose_lm(*args, **kw, trace=tr)
+    assert all(torch.equal(a, b) for a, b in zip(plain_out, traced))
+    assert tr["acc"].shape == (B, S, 3, 6) and tr["lev"].shape == (
+        B, S, 3, 2, F)
+    assert torch.equal(tr["lev"][:, :, 0], torch.stack(
+        [args[4], args[5]], 1)[:, None].expand(B, S, 2, F))
+    fol = {}
+    p = pk.pose_lm_plain(*args, **kw, follow=tr, trace=fol)
+    torch.testing.assert_close(traced.T_all, p.T_all, rtol=0, atol=1e-4)
+    assert torch.equal(traced.inl_all, p.inl_all)
+    assert fol["acc_tie"] <= 1e-5 and fol["lev_tie"] <= 1e-3
 
 
 def test_solve_pose_multi_lr_is_one_launch(dev):
     """One `solve_pose_multi_lr` call at the slice's shape is one kernel B
-    launch and waits for nothing (sync debug mode); S > 8 starts, more than
-    MAX_POINTS points and no round are refused."""
+    launch and waits for nothing (sync debug mode); S > 8 starts and no
+    round are refused."""
     camp, pts, uv_l, uv_r, vl, vr, T0 = (
         x[0] if i else x for i, x in enumerate(_pose_streams(dev, 1, 3, 256)))
     kw = dict(chi2_th=5.991, rounds=3, iters=6)
@@ -262,11 +315,12 @@ def _window_inputs(dev, win):
     return args, dict(S=S, P=P, max_iters=30, eps=0.01, W=W, H=H)
 
 
-@pytest.mark.parametrize("win", [7, 11])
+@pytest.mark.parametrize("win", [7, 11, 16, 17, 21, 31])
 def test_lk_iterate_kernel_edge_cases_bit_equal(dev, win):
     """Kernel C against its plain version, bit for bit (NaN slots
-    included), at patch sizes 7 and 11: points that leave their window,
-    unsolvable points, frozen and NaN slots; one call is one launch."""
+    included), at patch sizes 7 to 31 (two lanes a row up to 16, one
+    above): points that leave their window, unsolvable points, frozen and
+    NaN slots; one call is one launch."""
     args, kw = _window_inputs(dev, win)
     before = lk_iterate.launch_count
     k = lk_iterate.lk_iterate(*args, **kw)
@@ -300,16 +354,15 @@ def test_wrappers_check_their_inputs(dev):
         tiny = [torch.zeros((1, 8 >> k, 60 >> k), device=dev)
                 for k in range(4)]
         lk_lanes.lk_pyramid(tiny, tiny, pts, pts, masks)
-    F = pk.MAX_POINTS + 1
-    with pytest.raises(ValueError):
-        pk.pose_lm(torch.zeros((2, 16), device=dev),
-                   torch.zeros((F, 3), device=dev),
-                   torch.zeros((F, 2), device=dev),
-                   torch.zeros((F, 2), device=dev),
-                   torch.zeros(F, dtype=torch.bool, device=dev),
-                   torch.zeros(F, dtype=torch.bool, device=dev),
-                   torch.zeros((1, 3, 4), device=dev), chi2_th=5.991,
-                   rounds=3, iters=6)
+    with pytest.raises(ValueError):      # a window above kernel A's 31
+        lk_lanes.lk_pyramid(prev, prev, pts, pts, masks, win_size=33)
+    # more points than the kernel stages (1024) run and agree with the
+    # plain version: once refused, now taken
+    args = _pose_streams(dev, 1, 3, 1500)
+    kw6 = dict(chi2_th=5.991, rounds=3, iters=6)
+    k, p = pk.pose_lm(*args, **kw6), pk.pose_lm_plain(*args, **kw6)
+    torch.testing.assert_close(k.T_all, p.T_all, rtol=0, atol=1e-4)
+    assert torch.equal(k.inl_all, p.inl_all)
     ma = (("dp", 4), ("mp", 2))
     x = torch.zeros((8, 33, rr.LANES), device=dev)
     with pytest.raises(ValueError):      # not contiguous

@@ -200,3 +200,45 @@ def test_one_pass_schedule_equals_two_pass(seed, B, S):
     assert not bool(got.inl_all[:, 1].any())
     if B > 1:
         assert not bool(got.inl_all[1].any()) and int(got.n_inliers[1]) == 0
+
+
+@pytest.mark.parametrize("B,S", [(1, 3), (4, 3)])
+def test_plain_trace_and_follow(B, S):
+    """The plain version writes its decisions into `trace` (each step's
+    acceptance, each round's inliers); following its own trace gives its
+    own bits with no decision differing; following a trace with one
+    acceptance turned gives another pose, and reports the turned decision
+    with its distance from a tie (the two costs of that step)."""
+    camp, pts, uv_l, uv_r, vl, vr, T0 = _streams(3, B, S)
+    args = (camp, pts, uv_l, uv_r, vl, vr, T0)
+    kw = dict(chi2_th=5.991, rounds=3, iters=6)
+    tr = {}
+    got = pk.pose_lm_plain(*args, **kw, trace=tr)
+    F = pts.shape[1]
+    assert tr["acc"].shape == (B, S, 3, 6) and tr["acc"].dtype == torch.bool
+    assert tr["lev"].shape == (B, S, 3, 2, F)
+    assert torch.equal(tr["lev"][:, :, 0], torch.stack(
+        [vl, vr], 1)[:, None].expand(B, S, 2, F))
+    # the first step from a start near the pose lowers the cost
+    assert bool(tr["acc"][0, 0, 0, 0])
+    again = {}
+    same = pk.pose_lm_plain(*args, **kw, trace=again, follow=tr)
+    assert all(torch.equal(a, b) for a, b in zip(got, same))
+    assert again["acc_flips"] == 0 and again["lev_flips"] == 0
+    assert again["acc_tie"] == 0.0 and again["lev_tie"] == 0.0
+    # reject the first step of start 0 of stream 0 (a clear decrease)
+    turned = {k: v.clone() for k, v in tr.items()}
+    turned["acc"][0, 0, 0, 0] = False
+    rep = {}
+    moved = pk.pose_lm_plain(*args, **kw, trace=rep, follow=turned)
+    assert rep["acc_flips"] >= 1 and rep["acc_tie"] > 1e-3
+    assert torch.equal(rep["acc"], turned["acc"])
+    assert not torch.equal(moved.T_all[0, 0], got.T_all[0, 0])
+    if B > 1:
+        assert torch.equal(moved.T_all[1:], got.T_all[1:])
+    # the single-stream form has no leading axis
+    one = {}
+    pk.pose_lm_plain(*(x[0] if i else x for i, x in enumerate(args)), **kw,
+                     trace=one)
+    assert one["acc"].shape == (S, 3, 6) and one["lev"].shape == (S, 3, 2, F)
+    assert torch.equal(one["acc"], tr["acc"][0])

@@ -48,3 +48,26 @@ def test_arena_render_matches_reference(side):
     d = np.abs(port.numpy() - np.asarray(ref))
     assert d.mean() < 0.1, d.mean()
     assert (d > 1.0).mean() < 5e-3, (d > 1.0).mean()
+
+
+def test_circuit_long_is_the_reference_scene():
+    """`circuit_long` against benchmarks/render_scene.py's "circuit_long"
+    (poses from tests/synthetic.py, yaw 2 pi / 112 a frame, 0.35 m a
+    frame): the 480 poses (atol 1e-4 after 479 compositions) and the path
+    length; its first frames at 188x620 rendered as the reference renders
+    them, held as above."""
+    jp = np.asarray(synthetic.forward_motion_poses(
+        480, step=0.35, yaw_rate=2 * np.pi / 112))
+    tp = scenes.forward_motion_poses(480, step=0.35,
+                                     yaw_rate=2 * math.pi / 112).numpy()
+    np.testing.assert_allclose(tp, jp, atol=1e-4)
+    lefts, rights, gt, dist, _ = scenes.circuit_long(T=3)
+    assert lefts.shape == (3, 188, 620) and dist == pytest.approx(0.35 * 3)
+    np.testing.assert_allclose(gt, jp[:3], atol=2e-5)
+    ref = synthetic.render_arena_stereo_sequence(
+        jp[:3], H=188, W=620, rig=synthetic.make_stereo_rig(),
+        center=(0.0, 6.0), radius=25.0)
+    for port, r in ((lefts, ref[0]), (rights, ref[1])):
+        d = np.abs(port - np.asarray(r))
+        assert d.mean() < 0.1, d.mean()
+        assert (d > 1.0).mean() < 5e-3, (d > 1.0).mean()
