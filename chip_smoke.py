@@ -63,7 +63,17 @@ Phases, in order; any failure exits non-zero:
      PGO); the bench's gates (a loop, ATE after PGO < 2% of the path, PGO
      no worse than odometry), fps, the hook's host reads, the launch
      counters against the frame and keyframe counts, and every kernel A and
-     B launch of the phase held to its plain version after the run.
+     B launch of the phase held to its plain version after the run;
+ 14. the command line on a KITTI sequence: the circuit written as KITTI
+     PNGs (376x1240) and calib.txt, read back through `io.kitti` (cameras
+     and frames checked); `apps.run_slam` on "cuda" with the bench's
+     settings and `PLACENET_LOOP_GATES`, in classic mode (host loop
+     closure, viewer transcript; the first 30 frames' kernel A and B
+     launches held to their plain versions) and in fused mode, each with
+     the bench's gates, fps, ATE before and after PGO, `pgo_s` and the
+     launches; a fused run checkpointed every 50 frames and resumed from
+     frame 100, its keyframes.txt held to the uninterrupted run's; and the
+     loops the config's default gates close with PlaceNet (printed only).
 
 Phases 2, 3 and 6 also check the sizes the kernels once refused (kernel
 A's windows 21 and 31, kernel B at 2048 points, kernel C's patch 21) and
@@ -154,6 +164,11 @@ PGO_SHARD_TOL = 5e-2     # tests/test_sharded_pgo.py:30-31
 # patch above 11, kernel B's points above 1024), checked in phases 2, 3, 6
 WIDE_WINS, WIDE_R, WIDE_F = (21, 31), 21, 2048
 LONG_T = 480     # the bench's multi-lap circuit (benchmarks/render_scene.py)
+# phase 14: the classic CLI run's kernel A and B launches held over its
+# first frames; the fused run checkpointed every 50 frames (the last
+# checkpoint, at frame 100, is resumed)
+CLI_HOLD_FRAMES = 30
+CLI_CHECKPOINT_EVERY = 50
 
 
 def check(ok: bool, msg: str) -> None:
@@ -755,24 +770,32 @@ def check_held(records: list, label: str) -> tuple[float, float]:
 
 
 @contextlib.contextmanager
-def recorded(records: list):
+def recorded(records: list, max_b: int | None = None):
     """While active, every launch of kernel A (`lk_lanes.lk_pyramid`) and
     kernel B (`pose_kernel.pose_lm`) is recorded with its inputs (kept by
     reference: the path builds new tensors and changes none in place) and
     a copy of its outputs, so that `hold_recorded` can hold each to its
-    plain version after the run without slowing the run down."""
+    plain version after the run without slowing the run down. With
+    `max_b`, recording stops at the launch after the max_b-th kernel B
+    launch (on a single-stream path, the first max_b tracked frames)."""
     from stereovision_slam_torch.ops import lk_lanes, pose_kernel
 
     kernel_a, kernel_b = lk_lanes.lk_pyramid, pose_kernel.pose_lm
 
+    def full() -> bool:
+        return max_b is not None and sum(r[0] == "B" for r in records) >= max_b
+
     def a(*args, **kw):
         out = kernel_a(*args, **kw)
-        records.append(("A", args, kw, tuple(o.clone() for o in out)))
+        if not full():
+            records.append(("A", args, kw, tuple(o.clone() for o in out)))
         return out
 
     def b(*args, **kw):
         out = kernel_b(*args, **kw)
-        records.append(("B", args, kw, type(out)(*(o.clone() for o in out))))
+        if not full():
+            records.append(("B", args, kw,
+                            type(out)(*(o.clone() for o in out))))
         return out
 
     lk_lanes.lk_pyramid, pose_kernel.pose_lm = a, b
@@ -997,6 +1020,253 @@ def loop_phase(label: str, scene, counters, dev, place_params):
     print(f"loop {label}: the bench's gates "
           + ("met" if not missed else "MISSED: " + "; ".join(missed)))
     return launches, a_err, b_err, failed + missed
+
+
+def write_png_gray(path: str, img) -> None:
+    """An 8-bit greyscale PNG of a (H, W) uint8 array: filter 0 on every
+    row, zlib level 1."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    H, W = img.shape
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), img], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_kitti_sequence(root: str, lefts, rights, rig):
+    """The scene as a KITTI sequence at full resolution: image_0 / image_1
+    PNGs with every pixel of the rounded frame doubled (the loader's 2x
+    nearest-neighbour decimation gives the frame back), and a calib.txt of
+    the rig at full resolution (P1 and P3 with tx = -fx b). Returns the
+    rounded (T, H, W) uint8 frames, left and right."""
+    import numpy as np
+
+    left, right = rig
+    fx, fy, cx, cy = (2.0 * float(v) for v in (left.fx, left.fy, left.cx,
+                                               left.cy))
+    b = float(right.baseline)
+    rows = [f"P{i}: {fx!r} 0 {cx!r} {-fx * b if i % 2 else 0.0!r} 0 {fy!r} "
+            f"{cy!r} 0 0 0 1 0" for i in range(4)]
+    os.makedirs(root)
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    out = []
+    for sub, seq in (("image_0", lefts), ("image_1", rights)):
+        os.makedirs(os.path.join(root, sub))
+        q = np.clip(np.rint(seq), 0, 255).astype(np.uint8)
+        for i, img in enumerate(q):
+            write_png_gray(os.path.join(root, sub, f"{i:06d}.png"),
+                           np.repeat(np.repeat(img, 2, axis=0), 2, axis=1))
+        out.append(q)
+    return out
+
+
+def cli_phase(scene, counters, dev):
+    """Phase 14: the command line on a KITTI sequence. The circuit written
+    as a KITTI directory and read back by the loader; then
+    `apps.run_slam` on "cuda" with the bench's settings and
+    `PLACENET_LOOP_GATES`: classic (its first CLI_HOLD_FRAMES frames' kernel
+    A and B launches held to their plain versions), fused, fused with
+    checkpoints every CLI_CHECKPOINT_EVERY frames and a resume from the
+    last one (its keyframes.txt held to the uninterrupted fused run's), and
+    a fused run with the config's default (MobileNet-tuned) loop gates, a
+    finding only. The counters are set to 0 before each run. Returns
+    ({path: launches}, kernel A error, kernel B error, the holds and gates
+    missed), which main() gates after reporting everything."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+    from stereovision_slam_torch.apps import run_slam
+    from stereovision_slam_torch.io.kitti import KittiDataset
+    from stereovision_slam_torch.slam.config import SlamConfig
+    from stereovision_slam_torch.slam.outputs import load_keyframes_file
+
+    lefts, rights, gt, dist, rig = scene
+    T = len(lefts)
+    tmp = tempfile.mkdtemp(prefix="svslam_kitti_")
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+    by_path, missed, a_err, b_err = {}, [], 0.0, 0.0
+
+    def center(p):
+        return -p[:, :3].T @ p[:, 3]
+
+    def ate(traj: dict) -> float:
+        return float(np.sqrt(np.mean([
+            np.sum(np.square(center(np.asarray(p)) - center(gt[f])))
+            for f, p in traj.items()])))
+
+    def config(name: str, gates: bool = True) -> str:
+        cfg = loop_config() if gates else bench_config()
+        if not gates:   # the config's default (MobileNet-tuned) loop gates
+            base = SlamConfig()
+            for k in ("potential_loop_strong_threshold",
+                      "potential_loop_weak_threshold",
+                      "max_num_weak_threshold",
+                      "keyframes_to_skip_in_candidate_search",
+                      "keyframes_to_ignore_after_loop",
+                      "min_num_acceptable_keypoint_match"):
+                setattr(cfg, k, getattr(base, k))
+        cfg.dataset_dir = seq
+        cfg.output_dir = os.path.join(tmp, name)
+        cfg.loopclosure_on = cfg.backend_on = cfg.visualizer_on = 1
+        path = os.path.join(tmp, f"{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(dataclasses.asdict(cfg), f)
+        return path
+
+    def cli(name: str, argv: list, hold: bool = False) -> dict:
+        for mod in counters.values():
+            mod.launch_count = 0
+        records = []
+        sync()
+        t0 = time.perf_counter()
+        with (recorded(records, max_b=CLI_HOLD_FRAMES - 1) if hold
+              else contextlib.nullcontext()):
+            summary = run_slam.run(run_slam.parse_args(
+                [config(name, gates=name != "cli_default_gates"),
+                 "--device", str(dev)] + argv))
+        summary["wall_s"] = time.perf_counter() - t0
+        summary["records"] = records
+        by_path[name] = {k: m.launch_count for k, m in counters.items()}
+        _, _, frames = load_keyframes_file(
+            os.path.join(summary["output"], "keyframes.txt"))
+        summary["final"] = {fid: pose for fid, pose in frames}
+        return summary
+
+    def report(name: str, r: dict, inliers, kf_steps: int) -> None:
+        launches = by_path[name]
+        ate_odo, ate_pgo = ate(r["odometry"]), ate(r["final"])
+        print(f"{name}: {T} frames, {r['fps']:.2f} fps (the CLI's own clock; "
+              f"wall {r['wall_s']:.1f} s with set-up, shutdown and output), "
+              f"{len(r['final'])} keyframes, {r['loops']} loops, keyframe ATE "
+              f"{ate_odo:.4f} m, after PGO {ate_pgo:.4f} m over {dist:.1f} m "
+              f"({100 * ate_pgo / dist:.3f}%), pgo_s {r['pgo_s']:.3f}; "
+              f"launches A {launches['lk_pyramid']}, B {launches['pose_lm']}"
+              f" for {T - 1} tracked frames and {kf_steps} keyframe steps")
+        gates = {
+            f"tracking collapsed: n_inliers down to {min(inliers)}":
+                min(inliers) > 10,
+            "ATE not finite": bool(np.isfinite(ate_odo)
+                                   and np.isfinite(ate_pgo)),
+            "no loop closed": r["loops"] >= 1,
+            f"ATE after PGO {ate_pgo:.4f} m is not under 2% of {dist:.1f} m":
+                ate_pgo < 0.02 * dist,
+            f"PGO degraded the trajectory: {ate_pgo:.4f} > {ate_odo:.4f} m":
+                ate_pgo <= ate_odo + 1e-6,
+            f"kernel A launched {launches['lk_pyramid']} times, not "
+            f"{2 * (T - 1) + kf_steps}":
+                launches["lk_pyramid"] == 2 * (T - 1) + kf_steps,
+            f"kernel B launched {launches['pose_lm']} times, not {T - 1}":
+                launches["pose_lm"] == T - 1}
+        bad = [f"{name}: {m}" for m, ok in gates.items() if not ok]
+        print(f"{name}: the bench's gates " + ("met" if not bad else
+                                                "MISSED: " + "; ".join(bad)))
+        missed.extend(bad)
+
+    try:
+        # (a) the sequence on disk and the loader
+        seq = os.path.join(tmp, "sequence")
+        t0 = time.perf_counter()
+        ql, qr = write_kitti_sequence(seq, lefts, rights, rig)
+        print(f"phase 14: wrote the circuit as a KITTI sequence ({T} frames, "
+              f"2 x {ql.shape[1] * 2}x{ql.shape[2] * 2} PNGs) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        ds = KittiDataset(seq, device=dev)
+        ds.initialize()
+        cam_err = max(float((a - b.to(a.device)).abs().max())
+                      for ca, cb in zip(ds.cameras[:2], rig)
+                      for a, b in zip(ca, cb))
+        t0 = time.perf_counter()
+        frames = [ds.frame_by_id(i) for i in range(T)]
+        decode_ms = (time.perf_counter() - t0) * 1e3 / T
+        same = all(np.array_equal(f.left, ql[i].astype(np.float32))
+                   and np.array_equal(f.right, qr[i].astype(np.float32))
+                   for i, f in enumerate(frames))
+        print(f"phase 14: loader cameras within {cam_err:.2e} of the rig, "
+              f"{T} frames read back equal to the rounded scene: {same}, "
+              f"past the end: {ds.frame_by_id(T)}; decode {decode_ms:.2f} ms "
+              f"a stereo frame (Pillow, two PNGs, the card machine's host)")
+        if not (cam_err <= 1e-5 and same and ds.frame_by_id(T) is None):
+            missed.append(f"phase 14: the loader: cameras {cam_err:.2e}, "
+                          f"frames equal {same}")
+
+        # (b) classic, the first frames' kernel launches held
+        r = cli("cli_classic", ["--mode", "classic"], hold=True)
+        vo = r["vo"]
+        report("cli_classic", r, vo.inlier_history, vo.kf_count + 1)
+        a_err, b_err, failed = hold_recorded(
+            r["records"], f"cli_classic (first {CLI_HOLD_FRAMES} frames)",
+            vo.cfg.num_features_tracking_bad)
+        missed += failed
+        jsonl = os.path.join(vo.cfg.output_dir, "viewer.jsonl")
+        with open(jsonl) as f:
+            events = [json.loads(line)["event"] for line in f]
+        print(f"cli_classic: viewer transcript {len(events)} events "
+              f"({', '.join(f'{e} {events.count(e)}' for e in sorted(set(events)))})")
+        if not events:
+            missed.append("cli_classic: the viewer wrote no transcript")
+
+        # (c) fused
+        def fused_report(name: str, r: dict) -> None:
+            outs = r["vo"].outputs
+            report(name, r, [int(o.n_inliers) for _, o in outs[1:]],
+                   sum(bool(o.kf_inserted) for _, o in outs))
+        fused = cli("cli_fused", ["--mode", "fused"])
+        fused_report("cli_fused", fused)
+
+        # (d) checkpoints, then a resume from the last one
+        ck = cli("cli_checkpointed", ["--mode", "fused", "--checkpoint-every",
+                                      str(CLI_CHECKPOINT_EVERY)])
+        last = (T // CLI_CHECKPOINT_EVERY) * CLI_CHECKPOINT_EVERY
+        res = cli("cli_resumed", ["--mode", "fused", "--resume", os.path.join(
+            ck["vo"].cfg.output_dir, run_slam.CHECKPOINT_NAME)])
+        said = f"({last} frames already processed)"
+        resumed_at = any(said in line for line in res["lines"])
+
+        def gap(a: dict, b: dict) -> float:
+            if sorted(a) != sorted(b):
+                return float("inf")
+            return max(float(np.abs(a[f] - b[f]).max()) for f in a)
+        g_res, g_ck = gap(res["final"], fused["final"]), gap(
+            ck["final"], fused["final"])
+        print(f"cli_resumed: resumed after frame {last}: {resumed_at}; "
+              f"{len(res['final'])} keyframes against the uninterrupted "
+              f"run's {len(fused['final'])}, the same frame ids and poses "
+              f"within {g_res:.2e} (the checkpointed run's own within "
+              f"{g_ck:.2e}); launches A {by_path['cli_resumed']['lk_pyramid']}"
+              f", B {by_path['cli_resumed']['pose_lm']} over "
+              f"{T - last} frames")
+        if not (resumed_at and g_res <= 1e-5):
+            missed.append(f"cli_resumed: the resumed run is not the "
+                          f"uninterrupted one: resumed at {last} {resumed_at},"
+                          f" poses {g_res:.2e}")
+
+        # (e) a finding, no gate: the default gates with PlaceNet
+        dflt = cli("cli_default_gates", ["--mode", "fused"])
+        print(f"cli_default_gates: the config's default (MobileNet-tuned) "
+              f"loop gates with PlaceNet close {dflt['loops']} loop(s) "
+              f"({[(e.kf_id, e.loop_kf_id) for e in dflt['vo'].loop_edges()]}"
+              f"), keyframe ATE {ate(dflt['odometry']):.4f} m, after PGO "
+              f"{ate(dflt['final']):.4f} m (a finding, not a gate)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_path, a_err, b_err, missed
 
 
 def serving_streams(lefts, rights, gt):
@@ -1845,6 +2115,13 @@ def main() -> int:
         kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], a_err)
         kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_err)
         missed += failed
+    # 14. the command line on the circuit written as a KITTI sequence
+    cli_paths, a_err, b_err, failed = cli_phase(scenes_loop["circuit"],
+                                                counters, dev)
+    by_path.update(cli_paths)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], a_err)
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_err)
+    missed += failed
     if args.profile:
         from stereovision_slam_torch.io.dataset import ArraySequenceDataset
         from stereovision_slam_torch.slam.fused_loop import (
@@ -1857,11 +2134,12 @@ def main() -> int:
         profile_run("loop", vo_l.run, T - 1)
 
     # launches: kernels A and B on the loop path over both scenes (the
-    # main path), kernel C and the gather on the serving run with the
-    # per-level LK, kernel D on the sharded BA; every path's counts beside
-    # them
-    main_path = {"lk_pyramid": ("loop_circuit", "loop_circuit_long"),
-                 "pose_lm": ("loop_circuit", "loop_circuit_long"),
+    # main path) and on the command line's classic and fused runs, kernel
+    # C and the gather on the serving run with the per-level LK, kernel D
+    # on the sharded BA; every path's counts beside them
+    ab_paths = ("loop_circuit", "loop_circuit_long", "cli_classic",
+                "cli_fused")
+    main_path = {"lk_pyramid": ab_paths, "pose_lm": ab_paths,
                  "lk_iterate": ("serving_pallas",),
                  "gather_windows": ("serving_pallas",),
                  "ring_all_reduce": ("sharded_ba",)}
@@ -1875,7 +2153,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(smi)
-    # the bench's gates of phase 13, after everything else is reported
+    # the bench's gates of phases 13 and 14, after everything else is
+    # reported
     check(not missed, "; ".join(missed))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

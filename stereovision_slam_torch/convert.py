@@ -3,7 +3,7 @@
 Turns the JAX package's values, given as array-likes (numpy arrays, or any
 object `np.asarray` accepts), into the port's tensors: `Camera`, `MapState`,
 `FrontendState`, `ArchiveState`, `LoopState`, `PoseGraph`, `SlamConfig`
-fields and PlaceNet's weights. Both
+fields and PlaceNet's weights; `tensor` also reads checkpoint arrays. Both
 packages keep the same fixed capacities and slot order, so a converted
 state is the same state, and tests can start both packages from one
 mid-sequence state. A

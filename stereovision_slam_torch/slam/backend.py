@@ -298,3 +298,26 @@ def optimize_window(m: mapmod.MapState, cam_left: Camera, cam_right: Camera,
         obs_lm=torch.where(sever, torch.full_like(m.obs_lm, -1), m.obs_lm),
         obs_has_r=m.obs_has_r & ~sever, lm_obs_count=new_count)
     return m, (obs.valid.sum(), outlier.sum(), th, lm_overflow)
+
+
+class Backend:
+    """The classic pipeline's BA wrapper (the reference's `Backend`): one
+    `optimize_window` pass per keyframe insertion, its stats kept in
+    `last_stats`."""
+
+    def __init__(self, chi2_th: float = 5.991, iters: int = 10,
+                 outlier_rounds: int = 5,
+                 max_active_landmarks: int | None = 1024):
+        self.chi2_th = chi2_th
+        self.iters = iters
+        self.outlier_rounds = outlier_rounds
+        self.max_active_landmarks = max_active_landmarks
+        self.last_stats = None
+
+    def optimize(self, m: mapmod.MapState, cam_left: Camera,
+                 cam_right: Camera) -> mapmod.MapState:
+        m, self.last_stats = optimize_window(
+            m, cam_left, cam_right, chi2_th=self.chi2_th, iters=self.iters,
+            outlier_rounds=self.outlier_rounds,
+            max_active_landmarks=self.max_active_landmarks)
+        return m

@@ -15,9 +15,7 @@ from typing import Any
 
 import yaml
 
-
-class ConfigError(Exception):
-    """Malformed or missing configuration."""
+from stereovision_slam_torch.utils.exceptions import ConfigError
 
 
 # The PlaceNet loop-closure operating point, one gate set for every scene

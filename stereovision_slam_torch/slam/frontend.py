@@ -5,8 +5,12 @@
 leading axis of B streams: frame-to-frame LK with landmark-reprojection
 guesses, then ONE batched LK call (kernel A, 2B groups) for the anchored
 refinement and the left->right track, then the multi-start stereo pose
-solve (kernel B, all streams in one launch). `track_step` is its B = 1
-case, the single-stream step. `keyframe_step` is the GFTT
+solve (kernel B, all streams in one launch). `track_step` is the
+single-stream step: in the default topology its B = 1 case, otherwise the
+reference's sequential topology (`anchored=False`, `fused_tracks=False` or
+mono: one LK call, kernel A, per solve; the mono pose solve is the plain
+`pose_solver` path, as the reference solves it on every backend). Every
+solved pose is projected back onto SO(3). `keyframe_step` is the GFTT
 keyframe path: detection away from tracked features, left->right LK,
 triangulation, landmark creation and keyframe insertion. The reference's
 static-size `nonzero` and dropped scatters become explicit masks
@@ -15,6 +19,7 @@ static-size `nonzero` and dropped scatters become explicit masks
 
 from __future__ import annotations
 
+import enum
 from typing import NamedTuple
 
 import torch
@@ -26,6 +31,14 @@ from stereovision_slam_torch.ops.pose_kernel import (camera_block,
                                                       solve_pose_multi_lr)
 from stereovision_slam_torch.slam import map_state as mapmod
 from stereovision_slam_torch.slam.pose_solver import solve_pose_multi
+
+
+class FrontendStatus(enum.Enum):
+    """The classic pipeline's tracking status machine."""
+    INITING = 0
+    TRACKING_GOOD = 1
+    TRACKING_BAD = 2
+    LOST = 3
 
 
 class FrontendState(NamedTuple):
@@ -77,15 +90,28 @@ def _blend_obs_cameras(cam_left: Camera, cam_right: Camera, n_left: int,
     return Camera(*(blend(a, b) for a, b in zip(cam_left, cam_right)))
 
 
+def _pose_inits(T_rel, T_cur, multi_start: bool):
+    """The pose solve's starts (..., S, 3, 4): the constant-velocity
+    prediction, then with `multi_start` zero motion and a half step."""
+    T_guess = se3.se3_compose(T_rel, T_cur)
+    if not multi_start:
+        return T_guess[..., None, :, :]
+    half_rel = se3.se3_exp(0.5 * se3.se3_log(T_rel))
+    return torch.stack([T_guess, T_cur, se3.se3_compose(half_rel, T_cur)],
+                       dim=-3)
+
+
 def track_step_serving(fs: FrontendState, m: mapmod.MapState, cur_pyr,
                        cam_left: Camera, cur_right_pyr, cam_right: Camera, *,
                        chi2_th: float = 5.991, rounds: int = 4,
                        iters: int = 10, lk_iters: int = 30,
-                       pallas_mode: str = "lanes", camp=None):
+                       pallas_mode: str = "lanes", camp=None,
+                       multi_start: bool = True):
     """The tracking step over B streams at once: state and map with a
     leading (B, ...) axis, pyramid levels (B, H, W), shared cameras.
     `camp` is the rig's `camera_block` for kernel B (built from the cameras
-    when None; the VO loops build it once).
+    when None; the VO loops build it once). `multi_start=False` solves from
+    the constant-velocity prediction alone (kernel B with S = 1).
 
     The two LK solves fold every stream into one call per level (G = B
     groups, then G = 2B for the anchored refinement and the right-image
@@ -97,10 +123,8 @@ def track_step_serving(fs: FrontendState, m: mapmod.MapState, cur_pyr,
     back to the per-level route (the reference's serving path does not).
     Returns (fs', num_inliers (B,), num_tracked (B,))."""
     B, F = fs.feat_uv.shape[:2]
-    T_guess = se3.se3_compose(fs.T_rel, fs.T_cur)
-    half_rel = se3.se3_exp(0.5 * se3.se3_log(fs.T_rel))
-    T_inits = torch.stack([T_guess, fs.T_cur,
-                           se3.se3_compose(half_rel, fs.T_cur)], dim=1)
+    T_inits = _pose_inits(fs.T_rel, fs.T_cur, multi_start)
+    T_guess = T_inits[:, 0]
     guess, lm_pos, linked = _landmark_guesses(
         cam_left, T_guess, m.lm_pos, m.lm_valid, fs.feat_uv, fs.feat_lm,
         fs.feat_valid)
@@ -156,23 +180,86 @@ def track_step_serving(fs: FrontendState, m: mapmod.MapState, cur_pyr,
 
 
 def track_step(fs: FrontendState, m: mapmod.MapState, cur_pyr,
-               cam_left: Camera, cur_right_pyr, cam_right: Camera,
+               cam_left: Camera, cur_right_pyr=None, cam_right: Camera = None,
                chi2_th: float = 5.991, rounds: int = 4, iters: int = 10,
-               lk_iters: int = 30, camp=None):
-    """Track last-frame features into the current frame and solve the pose:
+               anchored: bool = True, multi_start: bool = True,
+               fused_tracks: bool = True, lk_iters: int = 30, camp=None):
+    """Track last-frame features into the current frame and solve the pose.
+
+    The default topology (anchored, stereo, fused tracks) is
     `track_step_serving` on the lanes route for one stream (the same
-    kernel launches). Returns (new_state, num_inliers, num_tracked) as 0-d
-    int32 tensors."""
-    def one(x):
-        return tuple(lv[None] for lv in x) if isinstance(x, tuple) else x[None]
-    fs1, n_in, n_tr = track_step_serving(
-        FrontendState(*map(one, fs)), mapmod.MapState(*map(one, m)),
-        one(tuple(cur_pyr)), cam_left, one(tuple(cur_right_pyr)), cam_right,
-        chi2_th=chi2_th, rounds=rounds, iters=iters, lk_iters=lk_iters,
-        camp=camp)
-    fs_new = FrontendState(*(tuple(lv[0] for lv in x) if isinstance(x, tuple)
-                             else x[0] for x in fs1))
-    return fs_new, n_in[0], n_tr[0]
+    kernel launches). `anchored=False`, `fused_tracks=False` or a missing
+    right pyramid (mono) take the reference's sequential topology:
+    frame-to-frame LK, then the anchored refinement when asked for, then
+    the right-image LK, each its own kernel A launch; a stereo pose solve
+    is kernel B, a mono one the plain multi-start solver. `multi_start=
+    False` solves from the constant-velocity prediction alone. Returns
+    (new_state, num_inliers, num_tracked) as 0-d int32 tensors; inliers
+    are counted on the left camera."""
+    stereo = cur_right_pyr is not None and cam_right is not None
+    if fused_tracks and anchored and stereo:
+        def one(x):
+            return (tuple(lv[None] for lv in x) if isinstance(x, tuple)
+                    else x[None])
+        fs1, n_in, n_tr = track_step_serving(
+            FrontendState(*map(one, fs)), mapmod.MapState(*map(one, m)),
+            one(tuple(cur_pyr)), cam_left, one(tuple(cur_right_pyr)),
+            cam_right, chi2_th=chi2_th, rounds=rounds, iters=iters,
+            lk_iters=lk_iters, camp=camp, multi_start=multi_start)
+        fs_new = FrontendState(*(tuple(lv[0] for lv in x)
+                                 if isinstance(x, tuple) else x[0]
+                                 for x in fs1))
+        return fs_new, n_in[0], n_tr[0]
+
+    F = fs.feat_uv.shape[0]
+    T_inits = _pose_inits(fs.T_rel, fs.T_cur, multi_start)
+    T_guess = T_inits[0]
+
+    def guesses(cam, uv):
+        g, pos, linked = _landmark_guesses(
+            cam, T_guess[None], m.lm_pos[None], m.lm_valid[None], uv[None],
+            fs.feat_lm[None], fs.feat_valid[None])
+        return g[0], pos[0], linked[0]
+
+    guess, lm_pos, linked = guesses(cam_left, fs.feat_uv)
+    cur_uv, status = lk.track(list(fs.pyr), list(cur_pyr), fs.feat_uv,
+                              initial_pts=guess, mask=fs.feat_valid,
+                              max_iters=lk_iters)
+    if anchored:
+        # the drift-free refinement against the anchor keyframe's
+        # templates, trusted wherever its LK converged
+        ref_uv, ref_status = lk.track(list(fs.ref_pyr), list(cur_pyr),
+                                      fs.ref_uv, initial_pts=cur_uv,
+                                      mask=fs.feat_valid, max_iters=lk_iters)
+        cur_uv = torch.where(ref_status[:, None], ref_uv, cur_uv)
+    tracked = fs.feat_valid & status
+    use = tracked & linked
+    if stereo:
+        guess_r = guesses(cam_right, cur_uv)[0]
+        uv_r, status_r = lk.track(list(cur_pyr), list(cur_right_pyr), cur_uv,
+                                  initial_pts=guess_r,
+                                  mask=fs.feat_valid & status & linked,
+                                  max_iters=lk_iters)
+        if camp is None:
+            camp = camera_block(cam_left, cam_right)
+        T_new, inlier2, num_inliers = solve_pose_multi_lr(
+            camp, T_inits, lm_pos, cur_uv, uv_r, use, use & status_r,
+            chi2_th=chi2_th, rounds=rounds, iters=iters)
+        inlier = inlier2[:F]
+    else:
+        T_new, inlier, num_inliers = solve_pose_multi(
+            cam_left, T_inits, lm_pos, cur_uv, use, chi2_th=chi2_th,
+            rounds=rounds, iters=iters)
+    # keep the pose on SO(3): the motion model below inverts by transposing
+    T_new = se3.se3_orthonormalize(T_new)
+    feat_lm = torch.where(tracked & ~(use & ~inlier), fs.feat_lm,
+                          torch.full_like(fs.feat_lm, -1))
+    fs_new = FrontendState(
+        T_cur=T_new,
+        T_rel=se3.se3_compose(T_new, se3.se3_inverse(fs.T_cur)),
+        feat_uv=cur_uv, feat_lm=feat_lm, feat_valid=tracked,
+        pyr=tuple(cur_pyr), ref_uv=fs.ref_uv, ref_pyr=fs.ref_pyr)
+    return fs_new, num_inliers, tracked.sum().to(torch.int32)
 
 
 def keyframe_step(fs: FrontendState, m: mapmod.MapState, right_pyr,

@@ -346,6 +346,53 @@ class FusedVisualOdometry:
                                    pose=poses[i]))
                 for i, (fid, o) in enumerate(zip(self._fids, self._outs))]
 
+    def state_dict(self) -> tuple[dict, dict]:
+        """(arrays, meta) of the complete streaming state, in the
+        reference's checkpoint layout (`slam/checkpoint.py`); a
+        device->host read of every state tensor."""
+        from stereovision_slam_torch.slam.checkpoint import (
+            frontend_arrays, host)
+        arrays = frontend_arrays(self.fs)
+        for prefix, state in (("ms", self.ms), ("arc", self.arc)):
+            for name, val in state._asdict().items():
+                arrays[f"{prefix}.{name}"] = host(val)
+        arrays["kf_count"] = np.asarray(self.kf_count, np.int32)
+        outs = self.outputs
+        if outs:
+            arrays["out.fids"] = np.asarray(self._fids, np.int64)
+            for f, dt in zip(FrameOutputs._fields, (
+                    np.int32, np.int32, np.bool_, np.int32, np.float32)):
+                arrays[f"out.{f}"] = np.stack(
+                    [np.asarray(getattr(o, f), dt) for _, o in outs])
+        meta = {"mode": type(self).__name__, "num_pyr_levels": len(self.fs.pyr),
+                "num_outputs": len(outs),
+                "dataset_index": getattr(self.dataset, "current_index", 0)}
+        return arrays, meta
+
+    def load_state_dict(self, arrays: dict, meta: dict) -> None:
+        """Restore a `state_dict` into an initialized instance (the
+        dataset and config must match); the next step() continues the
+        sequence."""
+        from stereovision_slam_torch.slam.checkpoint import (
+            load_frontend, load_tuple)
+        dev = self.device
+        self.fs = load_frontend(arrays, meta["num_pyr_levels"], dev)
+        self.ms = load_tuple(mapmod.MapState, arrays, "ms", dev)
+        self.arc = load_tuple(ArchiveState, arrays, "arc", dev)
+        self.kf_count = int(arrays["kf_count"])
+        self._fids, self._outs = [], []
+        if meta["num_outputs"]:
+            self._fids = [int(f) for f in arrays["out.fids"]]
+            n_in, n_tr, pose = (torch.as_tensor(arrays[f"out.{f}"]).to(dev)
+                                for f in ("n_inliers", "n_tracked", "pose"))
+            self._outs = [FrameOutputs(
+                n_inliers=n_in[i], n_tracked=n_tr[i],
+                kf_inserted=bool(arrays["out.kf_inserted"][i]),
+                kf_count=int(arrays["out.kf_count"][i]), pose=pose[i])
+                for i in range(len(self._fids))]
+        if hasattr(self.dataset, "current_index"):
+            self.dataset.current_index = meta["dataset_index"]
+
     def drain(self):
         """(keyframes {kf_id: (frame_id, pose)}, landmarks {global id: xyz},
         outputs) on the host; window values override the archive."""

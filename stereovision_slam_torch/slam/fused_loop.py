@@ -101,6 +101,25 @@ def embed(place_params, left_img: torch.Tensor) -> torch.Tensor:
                               "pass PlaceNet parameters or none")
 
 
+def loop_information(cam_left, T_corr, pts3d, uv, inliers, loop_rel):
+    """A loop edge's (6, 6) information: the PnP Gauss-Newton Hessian over
+    the final inliers at the solved pose, carried into the pose graph's
+    residual tangent (Adj(meas)^T H Adj(meas)) and normalized to a largest
+    eigenvalue of 1, so the directions the PnP pose cannot see get ~0
+    weight."""
+    _, J, _, p_cam = jacobians.reprojection_residual_jac(
+        cam_left, T_corr, pts3d, uv)
+    w = (inliers & (p_cam[..., 2] > 1e-6)).to(J.dtype)
+    H_pnp = torch.einsum("nab,nac,n->bc", J, J, w)
+    A = se3.se3_adjoint(loop_rel)
+    H_res = A.T @ H_pnp @ A
+    v = torch.ones((6,), dtype=H_res.dtype, device=H_res.device)
+    for _ in range(8):                  # power iteration for lambda_max
+        v = H_res @ v
+        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-20)
+    return H_res / torch.clamp(v @ (H_res @ v), min=1e-12)
+
+
 def _loop_hook(ls: LoopState, fs, ms, pyr, frame_id, kf_id: int, arc, *,
                cam_left, place_params, skip: int, cooldown: int,
                strong: float, weak: float, max_weak: int, min_match: int,
@@ -157,20 +176,8 @@ def _loop_hook(ls: LoopState, fs, ms, pyr, frame_id, kf_id: int, arc, *,
                                        uniform, reproj_threshold=5.991)
         loop_rel = se3.se3_compose(T_corr, se3.se3_inverse(cand_pose))
 
-        # the edge's information: the PnP Gauss-Newton Hessian over the
-        # final inliers, carried into the pose graph's residual tangent
-        # (Adj(meas)^T H Adj(meas)), normalized to a largest eigenvalue of 1
-        _, J, _, p_cam = jacobians.reprojection_residual_jac(
-            cam_left, T_corr, cand_pos, uv_m)
-        w = (inl & (p_cam[..., 2] > 1e-6)).to(J.dtype)
-        H_pnp = torch.einsum("nab,nac,n->bc", J, J, w)
-        A = se3.se3_adjoint(loop_rel)
-        H_res = A.T @ H_pnp @ A
-        v = torch.ones((6,), dtype=H_res.dtype, device=dev)
-        for _ in range(8):                  # power iteration for lambda_max
-            v = H_res @ v
-            v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-20)
-        info = H_res / torch.clamp(v @ (H_res @ v), min=1e-12)
+        info = loop_information(cam_left, T_corr, cand_pos, uv_m, inl,
+                                loop_rel)
         pose_diff = se3.se3_distance(fs.T_cur, T_corr)
         accept = ((n_match >= min_match) & (n_in >= min_match)
                   & (torch.linalg.vector_norm(se3.se3_log(loop_rel))
@@ -298,6 +305,21 @@ class FusedLoopVisualOdometry(fused.FusedVisualOdometry):
             self.cam_left, self.cam_right, camp=self.camp, **self._statics(),
             kf_hook=self._hook(), hook_state=self.ls)
         return out
+
+    def state_dict(self) -> tuple[dict, dict]:
+        """The streaming state with the loop database and edge log
+        (`ls.`; descriptors as uint32 words, the reference's layout)."""
+        from stereovision_slam_torch.slam.checkpoint import host
+        arrays, meta = super().state_dict()
+        for name, val in self.ls._asdict().items():
+            a = host(val)
+            arrays[f"ls.{name}"] = a.view(np.uint32) if name == "db_desc" else a
+        return arrays, meta
+
+    def load_state_dict(self, arrays: dict, meta: dict) -> None:
+        from stereovision_slam_torch.slam.checkpoint import load_tuple
+        super().load_state_dict(arrays, meta)
+        self.ls = load_tuple(LoopState, arrays, "ls", self.device)
 
     def loop_edges(self) -> list[LoopEdgeRecord]:
         """The edge log on the host."""

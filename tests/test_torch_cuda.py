@@ -400,3 +400,30 @@ def test_ring_reduce_kernel_matches_plain(dev, axis, dp, mp, R):
     assert rr.launch_count == before + 2
     with pytest.raises(ValueError):
         rr.ring_all_reduce_flat(x.double(), axis, ma)
+
+
+def test_classic_pipeline_cuda_matches_cpu(dev):
+    """The classic pipeline (`VisualOdometry`, BA after every keyframe)
+    over the circuit's first 10 frames on the card and on the CPU: the
+    same keyframe frame ids, poses within 1e-2 (rounding differences of
+    the kernels against their plain versions compound over the frames)."""
+    from stereovision_slam_torch.io.dataset import ArraySequenceDataset
+    from stereovision_slam_torch.slam.backend import Backend
+    from stereovision_slam_torch.slam.config import SlamConfig
+    from stereovision_slam_torch.slam.pipeline import VisualOdometry
+
+    lefts, rights, _, _, rig = scenes.circuit(120, 188, 620, device=dev)
+    trajectories = []
+    for device in (dev, "cpu"):
+        vo = VisualOdometry(SlamConfig(num_features=250,
+                                       num_features_needed_for_keyframe=160),
+                            ArraySequenceDataset(lefts[:10], rights[:10],
+                                                 list(rig)),
+                            backend=Backend(), device=device)
+        vo.initialize()
+        vo.run()
+        trajectories.append(vo.trajectory())
+    card, cpu = trajectories
+    assert sorted(card) == sorted(cpu) and len(card) >= 3
+    for f in card:
+        np.testing.assert_allclose(card[f], cpu[f], rtol=0, atol=1e-2)
