@@ -74,6 +74,22 @@ Phases, in order; any failure exits non-zero:
      launches; a fused run checkpointed every 50 frames and resumed from
      frame 100, its keyframes.txt held to the uninterrupted run's; and the
      loops the config's default gates close with PlaceNet (printed only).
+ 15. the chunked modes, each frame CUDA-graph replays of the fused step's
+     branches (`slam/graphs.py`): (a) `ScanLoopVisualOdometry(chunk_size=
+     8)` over the circuit's first 15 frames (the init, keyframes with BA,
+     a padded row) held to `FusedLoopVisualOdometry`: float state within
+     1e-5 relative to max(1, |value|), integers and flags equal, the
+     launch counters those of the eager run plus the graphs' warm-ups;
+     (b) `ScanLoopVisualOdometry` on both loop scenes with the bench's
+     settings and gates, PGO through its graph, fps, host ms a frame,
+     replays a frame, keyframes, loops, ATE and pgo_s beside phase 13's,
+     and the first frame whose pose parts from phase 13's by more than
+     1e-4; a torch.profiler count of device kernels, host kernel launches
+     and graph launches a frame over 32 circuit frames of both paths;
+     (c) `ScanVisualOdometry` (chunk 32) and `UnrolledVisualOdometry`
+     (chunk 8) on the slice with its gates; (d) PGO's graph (one LM
+     iteration, replayed 22 times a solve) held to the eager
+     `optimize_pose_graph` within 1e-6 relative, both timed.
 
 Phases 2, 3 and 6 also check the sizes the kernels once refused (kernel
 A's windows 21 and 31, kernel B at 2048 points, kernel C's patch 21) and
@@ -169,6 +185,15 @@ LONG_T = 480     # the bench's multi-lap circuit (benchmarks/render_scene.py)
 # checkpoint, at frame 100, is resumed)
 CLI_HOLD_FRAMES = 30
 CLI_CHECKPOINT_EVERY = 50
+# phase 15: the chunked modes. (a) holds the chunked loop path to the eager
+# one over the circuit's first frames (two chunks of 8, one padded row):
+# float state within CHUNK_STATE_TOL relative to max(1, |value|) (landmarks
+# lie up to 300 m deep), integers and flags equal; (d) holds PGO's graph
+# to the eager solve within PGO_GRAPH_TOL, relative the same way.
+CHUNK_HOLD_FRAMES = 15
+CHUNK_STATE_TOL = 1e-5
+PGO_GRAPH_TOL = 1e-6
+CHUNK_PROFILE_FRAMES = 32
 
 
 def check(ok: bool, msg: str) -> None:
@@ -975,7 +1000,11 @@ def loop_phase(label: str, scene, counters, dev, place_params):
             for f, p in sorted(keyframes.values())]
     ate = float(np.sqrt(np.mean(np.square(errs))))
     edges = vo.loop_edges()
+    # the bench's warm_pgo: PGO's graph captured at this size off the clock
+    t0 = time.perf_counter()
+    vo.warm_pgo(kf_hint=len(keyframes))
     torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     traj = vo.run_pgo()
     torch.cuda.synchronize()
@@ -989,7 +1018,10 @@ def loop_phase(label: str, scene, counters, dev, place_params):
           f"{len(keyframes)} keyframes, {len(landmarks)} landmarks, "
           f"{len(edges)} loops {[(e.kf_id, e.loop_kf_id) for e in edges]}, "
           f"keyframe ATE {ate:.4f} m, after PGO {ate_pgo:.4f} m over "
-          f"{dist:.1f} m ({100 * ate_pgo / dist:.3f}%), pgo_s {pgo_s:.3f}, "
+          f"{dist:.1f} m ({100 * ate_pgo / dist:.3f}%), pgo_s {pgo_s:.3f} "
+          f"(PGO graphs captured {vo.pgo.runner.captures}, replays "
+          f"{vo.pgo.replays} with warm_pgo's; warm_pgo {warm_s:.3f} s off "
+          f"the clock), "
           f"hook host reads {vo.hook_reads} over {inserted - 1} hooked "
           f"keyframes; launches {launches} for {tracked} tracked frames and "
           f"{inserted} keyframe steps")
@@ -1019,7 +1051,10 @@ def loop_phase(label: str, scene, counters, dev, place_params):
     missed = [f"loop {label}: {msg}" for msg, ok in gates.items() if not ok]
     print(f"loop {label}: the bench's gates "
           + ("met" if not missed else "MISSED: " + "; ".join(missed)))
-    return launches, a_err, b_err, failed + missed
+    info = dict(fps=T / dt, ms=1e3 * dt / T, keyframes=len(keyframes),
+                loops=len(edges), ate=ate, ate_pgo=ate_pgo, pgo_s=pgo_s,
+                poses=np.stack([f.pose for _, f in frames]))
+    return launches, a_err, b_err, failed + missed, info
 
 
 def write_png_gray(path: str, img) -> None:
@@ -1949,6 +1984,382 @@ def pgo_phase(keyframes, gt, dev, profile: bool) -> None:
         profile_run("PGO", lambda: pg.optimize_pose_graph(g), 1, "solves")
 
 
+def state_gaps(a, b):
+    """The largest gap between the float state tensors of two runs,
+    relative to max(1, |value|), with its tensor's name, and the names of
+    the integer and boolean tensors that differ."""
+    import torch
+    from stereovision_slam_torch.slam.graphs import leaves
+
+    gap, where, unequal = 0.0, "", []
+    for name in ("fs", "ms", "arc", "ls"):
+        for field, v in getattr(a, name)._asdict().items():
+            w = getattr(getattr(b, name), field)
+            for j, (x, y) in enumerate(zip(leaves(v), leaves(w))):
+                label = f"{name}.{field}" + (f"[{j}]" if isinstance(
+                    v, tuple) else "")
+                if not x.dtype.is_floating_point:
+                    if not torch.equal(x, y):
+                        unequal.append(label)
+                    continue
+                if x.numel():
+                    g = float(((x - y).abs() / y.abs().clamp(min=1.0)).max())
+                    if not g <= gap:
+                        gap, where = g, label
+    return gap, where, unequal
+
+
+def loop_vo(cls, lefts, rights, rig, dev, params, **kw):
+    """An initialized loop pipeline over the frames, the bench's settings."""
+    from stereovision_slam_torch.io.dataset import ArraySequenceDataset
+
+    vo = cls(loop_config(), ArraySequenceDataset(lefts, rights, list(rig)),
+             place_params=params, max_total_keyframes=512,
+             max_total_landmarks=1 << 16, device=dev, **kw)
+    vo.initialize()
+    return vo
+
+
+def warm_counts(runner, counters) -> dict:
+    """The graph runner's warm-up launches, by counter name."""
+    return {k: runner.warm_launches.get(m.__name__, 0)
+            for k, m in counters.items()}
+
+
+def chunk_hold(scene, counters, dev, params) -> list:
+    """Phase 15 (a): `ScanLoopVisualOdometry(chunk_size=8)` against
+    `FusedLoopVisualOdometry` over the circuit's first CHUNK_HOLD_FRAMES
+    frames (the init, tracking, keyframes with BA and a padded row).
+    Returns the holds missed."""
+    import numpy as np
+    from stereovision_slam_torch.slam.fused_loop import (
+        FusedLoopVisualOdometry, ScanLoopVisualOdometry)
+
+    lefts, rights, _, _, rig = scene
+    n = CHUNK_HOLD_FRAMES
+    runs = []
+    for cls, kw in ((FusedLoopVisualOdometry, {}),
+                    (ScanLoopVisualOdometry, {"chunk_size": 8})):
+        vo = loop_vo(cls, lefts[:n], rights[:n], rig, dev, params, **kw)
+        for mod in counters.values():
+            mod.launch_count = 0
+        vo.run()
+        runs.append((vo, {k: m.launch_count for k, m in counters.items()}))
+    (e, le), (c, lc) = runs
+    gap, where, unequal = state_gaps(c, e)
+    oe, oc = e.outputs, c.outputs
+    pose_gap = float(np.abs(np.stack([o.pose for _, o in oc])
+                            - np.stack([o.pose for _, o in oe])).max())
+    same_in = ([int(o.n_inliers) for _, o in oc]
+               == [int(o.n_inliers) for _, o in oe])
+    ins = [bool(o.kf_inserted) for _, o in oc]
+    same_kf = ins == [bool(o.kf_inserted) for _, o in oe]
+    warm = warm_counts(c.runner, counters)
+    want = {k: le[k] + warm[k] for k in ("lk_pyramid", "pose_lm")}
+    pad = int(c.out_buf.n_inliers[n])
+    print(f"phase 15 (a): {n} circuit frames, chunks of 8 ({8 - n % 8} "
+          f"padded row(s), sentinel n_inliers {pad}): {c.runner.replays} "
+          f"graph replays, graphs {sorted(map(str, c.runner.graphs))}; "
+          f"{sum(ins)} keyframe steps; largest float gap to the eager run "
+          f"{gap:.3e} ({where}; held to {CHUNK_STATE_TOL} relative to "
+          f"max(1, |value|)), integer and flag tensors that differ "
+          f"{unequal}, frame poses within {pose_gap:.3e}, inlier counts "
+          f"equal {same_in}, keyframe decisions equal {same_kf}; launches "
+          f"chunked {lc}, eager {le}, warm-ups {warm}")
+    missed = []
+    if not (gap <= CHUNK_STATE_TOL and not unequal and same_in and same_kf):
+        missed.append(f"phase 15 (a): the chunked run is not the eager "
+                      f"one: {gap:.3e} at {where}, {unequal}")
+    if not (sum(ins) >= 2 and n % 8 and pad == -1
+            and c.runner.replays >= n - 1):
+        missed.append("phase 15 (a): the frames do not hold a keyframe "
+                      "with BA and a padded row")
+    if any(lc[k] != want[k] for k in want):
+        missed.append(f"phase 15 (a): launches {lc}, not {want}")
+    return missed
+
+
+def launch_profile(label: str, vo, warm_steps: int, steps: int,
+                   frames: int, tables: bool) -> None:
+    """Device kernels, host kernel launches and graph launches a frame
+    over `steps` steps after `warm_steps` (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm_steps):
+        vo.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            vo.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    api = {}
+    for e in ka:
+        if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                             "cudaGraphLaunch", "cudaMemcpy")):
+            api[e.key] = api.get(e.key, 0) + e.count
+    launches = sum(v for k, v in api.items() if "aunchKernel" in k)
+    graphs = api.get("cudaGraphLaunch", 0)
+    print(f"profile {label}: {frames} frames in {dt * 1e3:.1f} ms under the "
+          f"profiler, device busy {busy_ms:.1f} ms = "
+          f"{100 * busy_ms / (dt * 1e3):.1f}%, "
+          f"{sum(e.count for e in kernels) / frames:.0f} device kernels a "
+          f"frame, {launches / frames:.1f} kernel launches from the host a "
+          f"frame, {graphs / frames:.2f} graph launches a frame; runtime "
+          f"calls {api}")
+    if tables:
+        sort = ("self_device_time_total"
+                if hasattr(ka[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        print(ka.table(sort_by=sort, row_limit=25))
+        print(ka.table(sort_by="self_cpu_time_total", row_limit=15))
+
+
+def chunked_loop_run(name: str, scene, counters, dev, params,
+                     eager: dict) -> tuple[dict, list]:
+    """Phase 15 (b): `ScanLoopVisualOdometry` (chunk 8) on one loop scene
+    with the bench's settings and gates, PGO through its graph, beside
+    phase 13's eager run. Returns (the run's numbers, launches included,
+    the gates missed, the pipeline)."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch.slam.fused_loop import (
+        ScanLoopVisualOdometry)
+
+    lefts, rights, gt, dist, rig = scene
+    T = len(lefts)
+    vo = loop_vo(ScanLoopVisualOdometry, lefts, rights, rig, dev, params,
+                 chunk_size=8)
+    for mod in counters.values():
+        mod.launch_count = 0
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), time.process_time()
+    vo.run()
+    dt, cpu = time.perf_counter() - t0, time.process_time() - c0
+    launches = {k: m.launch_count for k, m in counters.items()}
+    keyframes, landmarks, frames = vo.drain()
+    n_in = np.array([int(f.n_inliers) for _, f in frames])
+    inserted = sum(bool(f.kf_inserted) for _, f in frames)
+
+    def center(p):
+        return -p[:, :3].T @ p[:, 3]
+
+    errs = [np.linalg.norm(center(p) - center(gt[f]))
+            for f, p in sorted(keyframes.values())]
+    ate = float(np.sqrt(np.mean(np.square(errs))))
+    edges = vo.loop_edges()
+    t1 = time.perf_counter()
+    vo.warm_pgo(kf_hint=len(keyframes))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    replays0 = vo.pgo.replays
+    t1 = time.perf_counter()
+    traj = vo.run_pgo()
+    torch.cuda.synchronize()
+    pgo_s = time.perf_counter() - t1
+    errs = [np.linalg.norm(center(np.asarray(p)) - center(gt[f]))
+            for f, p in traj.items()]
+    ate_pgo = float(np.sqrt(np.mean(np.square(errs))))
+    poses = np.stack([f.pose for _, f in frames])
+    apart = np.nonzero(np.abs(poses - eager["poses"]).reshape(T, -1)
+                       .max(axis=1) > 1e-4)[0]
+    first = int(apart[0]) if len(apart) else None
+    r = vo.runner
+    warm = warm_counts(r, counters)
+    tracked = T - 1
+    info = dict(launches=launches, fps=T / dt,
+                fps_warm=T / (dt - r.capture_s), ms=1e3 * dt / T,
+                cpu_ms=1e3 * cpu / T, replays=r.replays / T,
+                keyframes=len(keyframes), loops=len(edges), ate=ate,
+                ate_pgo=ate_pgo, pgo_s=pgo_s, first_apart=first)
+    print(f"chunked {name}: {T} frames in {dt:.3f} s = {T / dt:.2f} fps "
+          f"(eager, phase 13: {eager['fps']:.2f}); without the graphs' "
+          f"{r.captures} captures ({r.capture_s:.3f} s, warm-ups "
+          f"included) {info['fps_warm']:.2f} fps; {info['ms']:.2f} ms a "
+          f"frame on the host clock (eager {eager['ms']:.2f}), "
+          f"{info['cpu_ms']:.2f} ms of host CPU time a frame; "
+          f"{info['replays']:.2f} graph replays a frame; {len(keyframes)} "
+          f"keyframes (eager {eager['keyframes']}), {len(landmarks)} "
+          f"landmarks, {len(edges)} loops "
+          f"{[(e.kf_id, e.loop_kf_id) for e in edges]} (eager "
+          f"{eager['loops']}), keyframe ATE {ate:.4f} m (eager "
+          f"{eager['ate']:.4f}), after PGO {ate_pgo:.4f} m (eager "
+          f"{eager['ate_pgo']:.4f}) over {dist:.1f} m "
+          f"({100 * ate_pgo / dist:.3f}%), pgo_s {pgo_s:.3f} (eager "
+          f"{eager['pgo_s']:.3f}; PGO graphs captured {vo.pgo.runner.captures}"
+          f", warm_pgo {warm_s:.3f} s off the clock, run_pgo replays "
+          f"{vo.pgo.replays - replays0}); hook host reads {vo.hook_reads} "
+          f"over {inserted - 1} hooked keyframes; launches {launches} "
+          f"(warm-ups {warm}) for {tracked} tracked frames and {inserted} "
+          f"keyframe steps; the first frame whose pose parts from the eager "
+          f"run's by more than 1e-4: {first}")
+    want_a = 2 * tracked + inserted + warm["lk_pyramid"]
+    want_b = tracked + warm["pose_lm"]
+    gates = {
+        f"kernel A launched {launches['lk_pyramid']} times, not {want_a}":
+            launches["lk_pyramid"] == want_a,
+        f"kernel B launched {launches['pose_lm']} times, not {want_b}":
+            launches["pose_lm"] == want_b,
+        f"{vo.hook_reads} hook host reads":
+            vo.hook_reads <= 2 * (inserted - 1),
+        f"{len(keyframes)} keyframes, {len(landmarks)} landmarks":
+            len(keyframes) >= 2 and len(landmarks) > 50,
+        f"tracking collapsed: n_inliers down to {n_in[1:].min()}":
+            bool(np.all(n_in[1:] > 10)),
+        "ATE not finite": bool(np.isfinite(ate) and np.isfinite(ate_pgo)),
+        "no loop closed": len(edges) >= 1,
+        f"ATE after PGO {ate_pgo:.4f} m is not under 2% of {dist:.1f} m":
+            ate_pgo < 0.02 * dist,
+        f"PGO degraded the trajectory: {ate_pgo:.4f} > {ate:.4f} m":
+            ate_pgo <= ate + 1e-6,
+        "PGO did not run through its graph (a replay an LM iteration)":
+            vo.pgo.replays - replays0 == 22 and vo.pgo.runner.captures >= 1}
+    missed = [f"chunked {name}: {m}" for m, ok in gates.items() if not ok]
+    print(f"chunked {name}: the bench's gates "
+          + ("met" if not missed else "MISSED: " + "; ".join(missed)))
+    return info, missed, vo
+
+
+def chunked_slice(scene, dev, slice_fps: float) -> list:
+    """Phase 15 (c): `ScanVisualOdometry` (chunk 32) and
+    `UnrolledVisualOdometry` (chunk 8) on the slice, with its gates."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch.io.dataset import ArraySequenceDataset
+    from stereovision_slam_torch.slam.fused import (ScanVisualOdometry,
+                                                     UnrolledVisualOdometry)
+
+    lefts, rights, gt, dist, rig = scene
+    T = len(lefts)
+    missed = []
+    for cls, chunk in ((ScanVisualOdometry, 32), (UnrolledVisualOdometry, 8)):
+        vo = cls(bench_config(), ArraySequenceDataset(lefts, rights,
+                                                      list(rig)),
+                 max_total_keyframes=512, max_total_landmarks=1 << 16,
+                 device=dev, chunk_size=chunk)
+        vo.initialize()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vo.run()
+        dt = time.perf_counter() - t0
+        keyframes, landmarks, frames = vo.drain()
+        n_in = np.array([int(f.n_inliers) for _, f in frames])
+        errs = [np.linalg.norm(-p[:, :3].T @ p[:, 3]
+                               + gt[f][:, :3].T @ gt[f][:, 3])
+                for f, p in sorted(keyframes.values())]
+        ate = float(np.sqrt(np.mean(np.square(errs))))
+        r = vo.runner
+        print(f"chunked slice, {cls.__name__} (chunk {chunk}): {T} frames "
+              f"in {dt:.3f} s = {T / dt:.2f} fps (eager, phase 4: "
+              f"{slice_fps:.2f}), {T / (dt - r.capture_s):.2f} fps without "
+              f"the {r.captures} captures ({r.capture_s:.3f} s), "
+              f"{r.replays / T:.2f} replays a frame, {len(keyframes)} "
+              f"keyframes, {len(landmarks)} landmarks, keyframe ATE "
+              f"{ate:.4f} m over {dist:.1f} m ({100 * ate / dist:.3f}%)")
+        if not (len(keyframes) >= 2 and len(landmarks) > 50
+                and np.all(n_in[1:] > 10) and np.isfinite(ate)
+                and ate < 0.02 * dist):
+            missed.append(f"chunked slice {cls.__name__}: ATE {ate:.4f} m, "
+                          f"inliers down to {n_in[1:].min()}")
+    return missed
+
+
+def pgo_graph_hold(vo) -> list:
+    """Phase 15 (d): PGO's graph against the eager `optimize_pose_graph` on
+    the chunked circuit run's pose graph, both timed (twice each: the
+    first eager call pays its one-time set-up), eager with PyTorch's
+    default linear-algebra backend and with cuSOLVER, the graph's."""
+    import torch
+    from stereovision_slam_torch.slam.pose_graph import optimize_pose_graph
+
+    keyframes, _, _ = vo.drain()
+    problem = vo.pose_graph(keyframes)
+    if problem is None:
+        return ["phase 15 (d): the chunked circuit run closed no loop"]
+    g, _ = problem
+
+    def timed_solve(fn):
+        out, ts = None, []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return out, ts
+
+    eager, t_e = timed_solve(lambda: optimize_pose_graph(g))
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        eager_cs, t_c = timed_solve(lambda: optimize_pose_graph(g))
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+    graph, t_g = timed_solve(lambda: vo.pgo.solve(g))
+
+    def gap(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+    gd, gc = gap(graph, eager), gap(graph, eager_cs)
+    print(f"phase 15 (d): PGO over {int(g.pose_valid.sum())} keyframes and "
+          f"{int(g.edge_valid.sum())} edges (padded {tuple(g.poses.shape)}, "
+          f"{tuple(g.edge_i.shape)}): the graph within {gc:.3e} of the eager "
+          f"solve on cuSOLVER and {gd:.3e} of the eager solve on the default "
+          f"backend (relative to max(1, |value|), held to {PGO_GRAPH_TOL}); "
+          f"eager {t_e[0]:.3f} s then {t_e[1]:.3f} s, eager on cuSOLVER "
+          f"{t_c[1]:.3f} s, graph {t_g[0]:.4f} s then {t_g[1]:.4f} s (the "
+          f"eigh of the edge informations and the copies in and out "
+          f"included)")
+    if not min(gc, gd) <= PGO_GRAPH_TOL:
+        return [f"phase 15 (d): PGO's graph is {gc:.3e} from the eager "
+                "solve"]
+    return []
+
+
+def chunked_phase(scenes_loop, slice_scene, counters, dev, params,
+                  eager_loop: dict, slice_fps: float, profile: int) -> list:
+    """Phase 15: the chunked modes, (a) held to the eager loop path, (b)
+    on both loop scenes with the bench's gates beside phase 13, with a
+    launch profile of both paths on the circuit, (c) on the slice, (d)
+    PGO's graph held to the eager solve. Returns (the launches of the
+    chunked loop runs by path, the holds and gates missed)."""
+    from stereovision_slam_torch.slam.fused_loop import (
+        FusedLoopVisualOdometry, ScanLoopVisualOdometry)
+
+    t0 = time.perf_counter()
+    missed = chunk_hold(scenes_loop["circuit"], counters, dev, params)
+    runs, paths = {}, {}
+    for name, scene in scenes_loop.items():
+        info, failed, vo = chunked_loop_run(name, scene, counters, dev,
+                                            params, eager_loop[name])
+        runs[name], paths[f"chunked_{name}"] = vo, info["launches"]
+        missed += failed
+    lefts, rights, _, _, rig = scenes_loop["circuit"]
+    n = CHUNK_PROFILE_FRAMES
+    launch_profile("loop eager", loop_vo(
+        FusedLoopVisualOdometry, lefts[:2 * n], rights[:2 * n], rig, dev,
+        params), n, n, n, bool(profile))
+    launch_profile("loop chunked", loop_vo(
+        ScanLoopVisualOdometry, lefts[:2 * n], rights[:2 * n], rig, dev,
+        params, chunk_size=8), n // 8, n // 8, n, bool(profile))
+    missed += chunked_slice(slice_scene, dev, slice_fps)
+    missed += pgo_graph_hold(runs["circuit"])
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return paths, missed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", type=int, default=0,
@@ -2015,6 +2426,7 @@ def main() -> int:
     n_in = np.array([int(f.n_inliers) for _, f in frames])
     kf_counts = [int(f.kf_count) for _, f in frames]
     inserted = [bool(f.kf_inserted) for _, f in frames]
+    slice_fps = T / dt
     print(f"slice: {T} frames in {dt:.3f} s = {T / dt:.2f} fps "
           f"(host clock, ends in synchronize), {len(keyframes)} keyframes, "
           f"{len(landmarks)} landmarks, launches {launches}")
@@ -2108,10 +2520,10 @@ def main() -> int:
                                                       device=dev)
     print(f"rendered the long circuit ({LONG_T} frames) in "
           f"{time.perf_counter() - t0:.1f} s")
-    missed = []
+    missed, eager_loop = [], {}
     for name, scene in scenes_loop.items():
-        by_path[f"loop_{name}"], a_err, b_err, failed = loop_phase(
-            name, scene, counters, dev, params)
+        by_path[f"loop_{name}"], a_err, b_err, failed, eager_loop[name] = \
+            loop_phase(name, scene, counters, dev, params)
         kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], a_err)
         kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_err)
         missed += failed
@@ -2121,6 +2533,13 @@ def main() -> int:
     by_path.update(cli_paths)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], a_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_err)
+    missed += failed
+    # 15. the chunked modes: CUDA-graph replays of the fused step's
+    # branches and PGO's graph
+    chunked_paths, failed = chunked_phase(
+        scenes_loop, (lefts, rights, gt, dist, rig), counters, dev, params,
+        eager_loop, slice_fps, args.profile)
+    by_path.update(chunked_paths)
     missed += failed
     if args.profile:
         from stereovision_slam_torch.io.dataset import ArraySequenceDataset
@@ -2153,7 +2572,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(smi)
-    # the bench's gates of phases 13 and 14, after everything else is
+    # the bench's gates of phases 13 to 15, after everything else is
     # reported
     check(not missed, "; ".join(missed))
     print(json.dumps({"ok": True, "device": {

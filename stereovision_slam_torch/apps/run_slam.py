@@ -1,7 +1,7 @@
 """Stereo visual SLAM command line (counterpart of `apps/run_slam.py`).
 
     python -m stereovision_slam_torch.apps.run_slam [CONFIG.yaml]
-        [--device cuda|cpu] [--mode classic|fused]
+        [--device cuda|cpu] [--mode classic|fused|scan|unrolled]
         [--checkpoint-every N] [--resume PATH]
 
 CONFIG is a YAML file with the reference's keys (default
@@ -12,7 +12,10 @@ configs/default.yaml); `dataset_dir` names a KITTI-format sequence
             PGO, the viewer (the default);
   fused   - the streaming pipeline: stereo init, tracking, BA and, with
             `loopclosure_on`, the loop hook and the shutdown PGO, in one
-            step per frame.
+            step per frame;
+  scan    - fused semantics without loop closure, frames in chunks of 32,
+            each frame CUDA-graph replays of the fused step's branches;
+  unrolled - the same in chunks of 8 (the reference's unrolled chunk).
 The run goes to the card unless `--device cpu` is given. `--checkpoint-
 every N` saves the whole state every N frames to
 <output_dir>/slam_checkpoint.npz; `--resume PATH` continues from such a
@@ -33,8 +36,7 @@ import torch
 
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "configs", "default.yaml")
-MODES = ("classic", "fused")
-NOT_PORTED_MODES = ("scan", "unrolled")
+MODES = ("classic", "fused", "scan", "unrolled")
 CHECKPOINT_NAME = "slam_checkpoint.npz"
 
 
@@ -46,7 +48,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help=f"YAML config (default {DEFAULT_CONFIG})")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--mode", default="classic",
-                    help="classic (default) or fused")
+                    help="classic (default), fused, scan or unrolled")
     ap.add_argument("--checkpoint-every", type=int, default=0, metavar="N")
     ap.add_argument("--resume", default=None, metavar="PATH")
     return ap.parse_args(argv)
@@ -90,8 +92,8 @@ def run(args: argparse.Namespace) -> dict:
     os.makedirs(cfg.output_dir or ".", exist_ok=True)
     ckpt_path = os.path.join(cfg.output_dir or ".", CHECKPOINT_NAME)
 
-    if args.mode == "fused":
-        vo = _fused(cfg, dataset, device)
+    if args.mode != "classic":
+        vo = _fused(cfg, dataset, device, args.mode)
         vo.initialize()
         if args.resume:
             ckpt.load_fused_checkpoint(vo, args.resume)
@@ -120,7 +122,7 @@ def run(args: argparse.Namespace) -> dict:
         pgo_s = time.perf_counter() - t0
         fps = len(frames) / dt
         out = _save(cfg, kfs, lms_d)
-        say(f"SLAM finished (fused{tag}): {len(keyframes)} keyframes, "
+        say(f"SLAM finished ({args.mode}{tag}): {len(keyframes)} keyframes, "
             f"{len(lms_d)} landmarks, {fps:.2f} frames/s")
     else:
         vo = _classic(cfg, dataset, device)
@@ -147,10 +149,13 @@ def run(args: argparse.Namespace) -> dict:
                 odometry=odometry, pgo_s=pgo_s, output=out, lines=lines)
 
 
-def _fused(cfg, dataset, device):
-    from stereovision_slam_torch.slam.fused import FusedVisualOdometry
-    if not cfg.loopclosure_on:
-        return FusedVisualOdometry(cfg, dataset, device=device)
+def _fused(cfg, dataset, device, mode: str = "fused"):
+    from stereovision_slam_torch.slam import fused
+    if mode != "fused" or not cfg.loopclosure_on:
+        cls = {"fused": fused.FusedVisualOdometry,
+               "scan": fused.ScanVisualOdometry,
+               "unrolled": fused.UnrolledVisualOdometry}[mode]
+        return cls(cfg, dataset, device=device)
     from stereovision_slam_torch.slam.fused_loop import (
         FusedLoopVisualOdometry)
     from stereovision_slam_torch.slam.loop_closure import resolve_embedder
@@ -191,13 +196,9 @@ def _save(cfg, keyframes, landmarks: dict) -> str:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.mode in NOT_PORTED_MODES:
-        print(f"--mode {args.mode} is not ported yet (ROADMAP.md queue 1, "
-              "item 3: capture chunks of frames as CUDA graphs); use "
-              "classic or fused")
-        return 1
     if args.mode not in MODES:
-        print(f"Unknown --mode {args.mode}; expected classic|fused")
+        print(f"Unknown --mode {args.mode}; expected "
+              "classic|fused|scan|unrolled")
         return 1
     config_path = args.config or DEFAULT_CONFIG
     if not os.path.exists(config_path):

@@ -66,7 +66,9 @@ def camera2pixel(cam: Camera, p_c: torch.Tensor) -> torch.Tensor:
 
 
 def pixel2camera(cam: Camera, p_p: torch.Tensor, depth=1.0) -> torch.Tensor:
-    depth = torch.as_tensor(depth, dtype=p_p.dtype, device=p_p.device)
+    depth = (depth.to(dtype=p_p.dtype, device=p_p.device)
+             if torch.is_tensor(depth) else
+             torch.full((), depth, dtype=p_p.dtype, device=p_p.device))
     return torch.stack([(p_p[..., 0] - cam.cx) * depth / cam.fx,
                         (p_p[..., 1] - cam.cy) * depth / cam.fy,
                         depth.expand(p_p[..., 0].shape)], dim=-1)

@@ -25,11 +25,11 @@ def _jacobi_rotation(B: torch.Tensor, p: int, q: int, d: int) -> torch.Tensor:
     c = 1.0 / torch.sqrt(1.0 + t * t)
     s = t * c
     eye = torch.eye(d, dtype=B.dtype, device=B.device)
-    Epp_qq = torch.zeros((d, d), dtype=B.dtype, device=B.device)
-    Epp_qq[p, p] = 1.0
-    Epp_qq[q, q] = 1.0
-    Epq = torch.zeros((d, d), dtype=B.dtype, device=B.device)
-    Epq[p, q] = 1.0
+    # the unit matrices built on the device (a captured CUDA graph takes no
+    # copy from the host)
+    i = torch.arange(d, device=B.device)
+    Epp_qq = torch.diag(((i == p) | (i == q)).to(B.dtype))
+    Epq = ((i[:, None] == p) & (i[None, :] == q)).to(B.dtype)
     return (eye[None] + (c - 1.0)[:, None, None] * Epp_qq[None]
             + s[:, None, None] * Epq[None] - s[:, None, None] * Epq.T[None])
 

@@ -32,7 +32,7 @@ def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def match(query, query_ok, train, train_ok, dist_floor: float = 30.0):
     """Best match per query row with the reference's distance gate.
     Returns (idx (Na,) int64, dist (Na,) int32, good (Na,) bool)."""
-    big = torch.tensor(10_000, dtype=torch.int32, device=query.device)
+    big = torch.full((), 10_000, dtype=torch.int32, device=query.device)
     d = hamming_matrix(query, train)
     d = torch.where(train_ok[None, :], d, big)
     d = torch.where(query_ok[:, None], d, big)
@@ -40,7 +40,7 @@ def match(query, query_ok, train, train_ok, dist_floor: float = 30.0):
     dist = torch.gather(d, 1, idx[:, None])[:, 0]
     valid = query_ok & (dist < big)
     d_min = torch.min(torch.where(valid, dist, big))
-    thresh = torch.maximum(2 * d_min, torch.tensor(
-        int(dist_floor), dtype=torch.int32, device=query.device))
+    thresh = torch.maximum(2 * d_min, torch.full(
+        (), int(dist_floor), dtype=torch.int32, device=query.device))
     good = valid & (dist <= thresh)
     return idx, dist, good

@@ -232,7 +232,7 @@ def optimize_window(m: mapmod.MapState, cam_left: Camera, cam_right: Camera,
         return torch.where(obs_c.valid & in_front, rho(c), 0.0).sum()
 
     kf_pose, lm_pos_c = m.kf_pose, lm_pos0
-    lam = torch.tensor(1e-4, dtype=dt, device=dev)
+    lam = torch.full((), 1e-4, dtype=dt, device=dev)
     for _ in range(iters):
         r, Jp, Jl, in_front = _residuals_lr(cam_left, cam_right, kf_pose,
                                             lm_pos_c, obs_c)
@@ -265,7 +265,7 @@ def optimize_window(m: mapmod.MapState, cam_left: Camera, cam_right: Camera,
     c_final = torch.where(obs_c.valid & in_front, torch.sum(r * r, dim=-1),
                           0.0)
     total = torch.clamp(obs_c.valid.sum(), min=1)
-    th = torch.tensor(chi2_th, dtype=dt, device=dev)
+    th = torch.full((), chi2_th, dtype=dt, device=dev)
 
     def ratio_at(th):
         return (obs_c.valid & (c_final <= th) & in_front).sum() / total

@@ -271,7 +271,9 @@ def keyframe_step(fs: FrontendState, m: mapmod.MapState, right_pyr,
     """Make the current frame a keyframe (GFTT detector).
 
     `detect_all=True` is the stereo-initialization path (no masking).
-    Returns (fs', m', evicted, num_new_landmarks, num_right_tracks)."""
+    `frame_id` and `kf_id` are ints or 0-d integer tensors (the chunked
+    modes' static ids), passed through to the map. Returns (fs', m',
+    evicted, num_new_landmarks, num_right_tracks)."""
     F = fs.feat_uv.shape[0]
     left_img = fs.pyr[0]
     H, W = left_img.shape

@@ -12,7 +12,10 @@ global pose-graph optimization over the odometry and loop edges.
 
 The reference's two `lax.cond`s are host branches here: one device->host
 read of the candidate gate per keyframe and, when a candidate fires, one of
-the correction gate (`hook_reads` counts them).
+the correction gate (`hook_reads` counts them). The hook is four stages of
+tensors split at those reads (`hook_candidates`, `hook_attempt`,
+`hook_correct`, `hook_insert`), which `ScanLoopVisualOdometry` replays as
+CUDA graphs; the shutdown PGO replays one through `PoseGraphSolver`.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from stereovision_slam_torch.slam import map_state as mapmod
 from stereovision_slam_torch.slam.config import SlamConfig
 from stereovision_slam_torch.slam.pnp import pnp_ransac
 from stereovision_slam_torch.slam.pose_graph import (
-    PoseGraph, optimize_pose_graph, reanchor_landmarks)
+    PoseGraph, PoseGraphSolver, reanchor_landmarks)
 
 EMBED_DIM = mnv2.EMBED_DIM      # 1280
 
@@ -120,38 +123,53 @@ def loop_information(cam_left, T_corr, pts3d, uv, inliers, loop_rel):
     return H_res / torch.clamp(v @ (H_res @ v), min=1e-12)
 
 
-def _loop_hook(ls: LoopState, fs, ms, pyr, frame_id, kf_id: int, arc, *,
-               cam_left, place_params, skip: int, cooldown: int,
-               strong: float, weak: float, max_weak: int, min_match: int,
-               min_pose_diff: float, max_pose_diff: float,
-               max_loop_dist: float, num_hypotheses: int, stats=None):
-    """The keyframe-rate loop-closure pipeline (the reference's
-    `_loop_hook`); `fused.fused_step`'s `kf_hook` with the gates bound.
-    `arc` is part of the hook contract and unused: the candidate's tables
-    are its insertion-time snapshots, as in the reference. `stats`, a dict,
-    counts the hook's device->host reads under "host_reads". Returns (fs,
-    ms, ls)."""
-    left_img = pyr[0]
+class HookScratch(NamedTuple):
+    """What one stage of the loop hook hands the next (the chunked mode
+    keeps it in static buffers between the stages' graphs)."""
+    emb: torch.Tensor           # (1280,) the keyframe's place embedding
+    desc: torch.Tensor          # (F, W) int32 its ORB descriptors
+    desc_ok: torch.Tensor       # (F,) bool
+    best: torch.Tensor          # () int64 the candidate's keyframe id
+    candidate_ok: torch.Tensor  # () bool the candidate gate
+    match_idx: torch.Tensor     # (F,) int64 current feature per candidate's
+    fuse: torch.Tensor          # (F,) bool matches to merge (usable, inlier)
+    T_corr: torch.Tensor        # (3, 4) the PnP pose of the keyframe
+    need_corr: torch.Tensor     # () bool the correction gate
+
+
+def empty_scratch(F: int, dtype=torch.float32, device="cpu") -> HookScratch:
+    def z(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+    i64, b8 = torch.int64, torch.bool
+    return HookScratch(
+        emb=z((EMBED_DIM,), dtype), desc=z((F, descriptors.N_WORDS),
+                                          torch.int32),
+        desc_ok=z((F,), b8), best=z((), i64), candidate_ok=z((), b8),
+        match_idx=z((F,), i64), fuse=z((F,), b8), T_corr=z((3, 4), dtype),
+        need_corr=z((), b8))
+
+
+# The loop hook in four stages, split at its two host reads (the candidate
+# gate and the correction gate); each reads and writes tensors only, the
+# keyframe id a 0-d integer tensor.
+
+def hook_candidates(ls: LoopState, fs, left_img, kf_id, *, place_params,
+                    skip: int, cooldown: int, strong: float, weak: float,
+                    max_weak: int, **_):
+    """Stage 1: the place embedding, the keyframe's ORB descriptors and the
+    candidate scan, one matvec over the database. Returns (ls with the
+    latest score, emb, desc, desc_ok, best, candidate_ok)."""
     dev = left_img.device
     Tdb = ls.db_embed.shape[0]
-
-    def host_bool(x) -> bool:
-        if stats is not None:
-            stats["host_reads"] = stats.get("host_reads", 0) + 1
-        return bool(x)
-
-    # 1. the place embedding and 2. the keyframe's ORB descriptors
     emb = embed(place_params, left_img)
     desc, desc_ok = descriptors.compute(left_img, fs.feat_uv, fs.feat_valid,
                                         pattern=ls.pattern)
-
-    # 3. the candidate scan, one matvec over the database
     ids = torch.arange(Tdb, device=dev)
     mask = ls.db_valid & (kf_id - ids >= skip)
     sims = torch.where(mask, ls.db_embed @ emb,
                        torch.full((), float("-inf"), device=dev))
     best = torch.argmax(sims)
-    best_sim = sims[best]
+    best_sim = mapmod.row(sims, best)
     weak_count = torch.sum(sims > weak)
     in_cooldown = (ls.last_closed >= 0) & (kf_id - ls.last_closed <= cooldown)
     has_any = torch.any(mask)
@@ -160,74 +178,89 @@ def _loop_hook(ls: LoopState, fs, ms, pyr, frame_id, kf_id: int, arc, *,
     ls = ls._replace(last_score=torch.clamp(torch.where(
         has_any, best_sim, torch.zeros_like(best_sim)), min=0.0).to(
             ls.last_score.dtype))
+    return ls, emb, desc, desc_ok, best, candidate_ok
 
-    # 4. geometric verification and fusion, when a candidate fires
-    if host_bool(candidate_ok):
-        idx, _, good = matching.match(ls.db_desc[best], ls.db_desc_ok[best],
-                                      desc, desc_ok)
-        usable = good & ls.db_lm_has[best]
-        # the candidate's insertion-time landmark and pose snapshots
-        cand_pos, cand_pose = ls.db_lm_pos[best], ls.db_pose[best]
-        n_match = torch.sum(usable)
-        uv_m = fs.feat_uv[torch.clamp(idx, min=0)]
-        uniform = prng.uniform(kf_id, (num_hypotheses, cand_pos.shape[0]),
-                               1e-9, 1.0, device=dev)
-        T_corr, inl, n_in = pnp_ransac(cam_left, cand_pos, uv_m, usable,
-                                       uniform, reproj_threshold=5.991)
-        loop_rel = se3.se3_compose(T_corr, se3.se3_inverse(cand_pose))
 
-        info = loop_information(cam_left, T_corr, cand_pos, uv_m, inl,
-                                loop_rel)
-        pose_diff = se3.se3_distance(fs.T_cur, T_corr)
-        accept = ((n_match >= min_match) & (n_in >= min_match)
-                  & (torch.linalg.vector_norm(se3.se3_log(loop_rel))
-                     <= max_loop_dist)
-                  & (pose_diff <= max_pose_diff)
-                  & torch.all(torch.isfinite(T_corr)))
-        need_corr = accept & (pose_diff > min_pose_diff)
+def hook_attempt(ls: LoopState, fs, desc, desc_ok, best, kf_id, *, cam_left,
+                 min_match: int, min_pose_diff: float, max_pose_diff: float,
+                 max_loop_dist: float, num_hypotheses: int, **_):
+    """Stage 2, when a candidate fires: Hamming match against the
+    candidate's descriptors, PnP RANSAC on its insertion-time landmarks
+    (the draws keyed by the keyframe id), the pose gates and the loop edge
+    record. Returns (ls, match_idx, fuse, T_corr, need_corr)."""
+    dev = desc.device
+    row = mapmod.row
+    idx, _, good = matching.match(row(ls.db_desc, best),
+                                  row(ls.db_desc_ok, best), desc, desc_ok)
+    usable = good & row(ls.db_lm_has, best)
+    # the candidate's insertion-time landmark and pose snapshots
+    cand_pos, cand_pose = row(ls.db_lm_pos, best), row(ls.db_pose, best)
+    n_match = torch.sum(usable)
+    uv_m = fs.feat_uv[torch.clamp(idx, min=0)]
+    uniform = prng.uniform(kf_id, (num_hypotheses, cand_pos.shape[0]),
+                           1e-9, 1.0, device=dev)
+    T_corr, inl, n_in = pnp_ransac(cam_left, cand_pos, uv_m, usable,
+                                   uniform, reproj_threshold=5.991)
+    loop_rel = se3.se3_compose(T_corr, se3.se3_inverse(cand_pose))
 
-        # record the loop edge
-        Emax = ls.loop_i.shape[0]
-        e = torch.where(accept, torch.clamp(ls.n_loops, 0, Emax - 1),
-                        torch.full_like(ls.n_loops, Emax)).reshape(1)
-        sd = mapmod.scatter_drop
-        kid = torch.tensor(kf_id, dtype=torch.int32, device=dev)
-        ls = ls._replace(
-            loop_i=sd(ls.loop_i, e, kid.reshape(1)),
-            loop_j=sd(ls.loop_j, e, best.to(torch.int32).reshape(1)),
-            loop_rel=sd(ls.loop_rel, e, loop_rel[None]),
-            loop_info=sd(ls.loop_info, e, info[None]),
-            n_loops=ls.n_loops + accept.to(torch.int32),
-            last_closed=torch.where(accept, kid, ls.last_closed))
+    info = loop_information(cam_left, T_corr, cand_pos, uv_m, inl, loop_rel)
+    pose_diff = se3.se3_distance(fs.T_cur, T_corr)
+    accept = ((n_match >= min_match) & (n_in >= min_match)
+              & (torch.linalg.vector_norm(se3.se3_log(loop_rel))
+                 <= max_loop_dist)
+              & (pose_diff <= max_pose_diff)
+              & torch.all(torch.isfinite(T_corr)))
+    need_corr = accept & (pose_diff > min_pose_diff)
 
-        if host_bool(need_corr):
-            # rigid LocalFusion: one world transform D for the window
-            D = se3.se3_compose(se3.se3_inverse(fs.T_cur), T_corr)
-            Dinv = se3.se3_inverse(D)
-            ms = ms._replace(
-                kf_pose=torch.where(ms.kf_valid[:, None, None],
-                                    se3.se3_compose(ms.kf_pose, D[None]),
-                                    ms.kf_pose),
-                lm_pos=torch.where(ms.lm_valid[:, None],
-                                   se3.se3_apply(Dinv[None], ms.lm_pos),
-                                   ms.lm_pos))
-            fs = fs._replace(T_cur=se3.se3_compose(fs.T_cur, D))
-            # duplicate-landmark merge against the loop keyframe
-            kf_slot = torch.argmax(torch.where(
-                ms.kf_valid, ms.kf_id, torch.full_like(ms.kf_id, -1)))
-            ms, new_feat_lm = mapmod.merge_loop_landmarks(
-                ms, fs.feat_lm, fs.feat_valid, kf_slot, idx, usable & inl,
-                cand_pos, ls.db_lm_id[best], ls.db_lm_first[best])
-            fs = fs._replace(feat_lm=new_feat_lm)
+    # record the loop edge
+    Emax = ls.loop_i.shape[0]
+    e = torch.where(accept, torch.clamp(ls.n_loops, 0, Emax - 1),
+                    torch.full_like(ls.n_loops, Emax)).reshape(1)
+    sd = mapmod.scatter_drop
+    kid = kf_id.to(torch.int32)
+    ls = ls._replace(
+        loop_i=sd(ls.loop_i, e, kid.reshape(1)),
+        loop_j=sd(ls.loop_j, e, best.to(torch.int32).reshape(1)),
+        loop_rel=sd(ls.loop_rel, e, loop_rel[None]),
+        loop_info=sd(ls.loop_info, e, info[None]),
+        n_loops=ls.n_loops + accept.to(torch.int32),
+        last_closed=torch.where(accept, kid, ls.last_closed))
+    return ls, idx, usable & inl, T_corr, need_corr
 
-    # 5. this keyframe joins the database (after any correction)
+
+def hook_correct(fs, ms, ls: LoopState, best, match_idx, fuse, T_corr):
+    """Stage 3, on a large enough correction: the rigid LocalFusion (one
+    world transform for the window) and the duplicate-landmark merge
+    against the loop keyframe. Returns (fs, ms)."""
+    row = mapmod.row
+    D = se3.se3_compose(se3.se3_inverse(fs.T_cur), T_corr)
+    Dinv = se3.se3_inverse(D)
+    ms = ms._replace(
+        kf_pose=torch.where(ms.kf_valid[:, None, None],
+                            se3.se3_compose(ms.kf_pose, D[None]),
+                            ms.kf_pose),
+        lm_pos=torch.where(ms.lm_valid[:, None],
+                           se3.se3_apply(Dinv[None], ms.lm_pos), ms.lm_pos))
+    fs = fs._replace(T_cur=se3.se3_compose(fs.T_cur, D))
+    kf_slot = torch.argmax(torch.where(
+        ms.kf_valid, ms.kf_id, torch.full_like(ms.kf_id, -1)))
+    ms, new_feat_lm = mapmod.merge_loop_landmarks(
+        ms, fs.feat_lm, fs.feat_valid, kf_slot, match_idx, fuse,
+        row(ls.db_lm_pos, best), row(ls.db_lm_id, best),
+        row(ls.db_lm_first, best))
+    return fs._replace(feat_lm=new_feat_lm), ms
+
+
+def hook_insert(ls: LoopState, fs, ms, emb, desc, desc_ok, kf_id):
+    """Stage 4: the keyframe joins the database (after any correction)."""
+    Tdb = ls.db_embed.shape[0]
     L = ms.lm_pos.shape[0]
     safe = torch.clamp(fs.feat_lm, 0, L - 1).to(torch.int64)
     lm_has = fs.feat_valid & (fs.feat_lm >= 0) & ms.lm_valid[safe]
-    slot = torch.tensor(min(max(kf_id, 0), Tdb - 1), device=dev)
+    slot = torch.clamp(kf_id, 0, Tdb - 1)
     none = torch.full_like(fs.feat_lm, -1)
     sr = mapmod.set_row
-    ls = ls._replace(
+    return ls._replace(
         db_embed=sr(ls.db_embed, slot, emb),
         db_desc=sr(ls.db_desc, slot, desc),
         db_desc_ok=sr(ls.db_desc_ok, slot, desc_ok),
@@ -241,7 +274,34 @@ def _loop_hook(ls: LoopState, fs, ms, pyr, frame_id, kf_id: int, arc, *,
         db_pose=sr(ls.db_pose, slot, fs.T_cur),
         db_valid=sr(ls.db_valid, slot, True),
     )
-    return fs, ms, ls
+
+
+def _loop_hook(ls: LoopState, fs, ms, pyr, frame_id, kf_id, arc, *,
+               stats=None, **gates):
+    """The keyframe-rate loop-closure pipeline (the reference's
+    `_loop_hook`); `fused.fused_step`'s `kf_hook` with the gates bound
+    (`cam_left`, `place_params` and the gate values of `_hook`): the four
+    stages above with the two gates read on the host between them. `arc`
+    is part of the hook contract and unused: the candidate's tables are
+    its insertion-time snapshots, as in the reference. `kf_id` an int or a
+    0-d integer tensor. `stats`, a dict, counts the hook's device->host
+    reads under "host_reads". Returns (fs, ms, ls)."""
+    left_img = pyr[0]
+    kf_id = torch.as_tensor(kf_id, device=left_img.device)
+
+    def host_bool(x) -> bool:
+        if stats is not None:
+            stats["host_reads"] = stats.get("host_reads", 0) + 1
+        return bool(x)
+
+    ls, emb, desc, desc_ok, best, candidate_ok = hook_candidates(
+        ls, fs, left_img, kf_id, **gates)
+    if host_bool(candidate_ok):
+        ls, idx, fuse, T_corr, need_corr = hook_attempt(
+            ls, fs, desc, desc_ok, best, kf_id, **gates)
+        if host_bool(need_corr):
+            fs, ms = hook_correct(fs, ms, ls, best, idx, fuse, T_corr)
+    return fs, ms, hook_insert(ls, fs, ms, emb, desc, desc_ok, kf_id)
 
 
 class LoopEdgeRecord(NamedTuple):
@@ -271,12 +331,14 @@ class FusedLoopVisualOdometry(fused.FusedVisualOdometry):
         self.num_hypotheses = num_hypotheses
         self.ls: LoopState | None = None
         self.hook_stats: dict = {"host_reads": 0}
+        self.pgo = None
 
     def initialize(self):
         super().initialize()
         self.ls = empty_loop_state(self.Tmax, self.cfg.max_features,
                                    self.max_loop_edges, device=self.device)
         self.hook_stats = {"host_reads": 0}
+        self.pgo = PoseGraphSolver(self.device)
 
     @property
     def hook_reads(self) -> int:
@@ -330,20 +392,36 @@ class FusedLoopVisualOdometry(fused.FusedVisualOdometry):
         return [LoopEdgeRecord(int(a), int(b), r, w)
                 for a, b, r, w in zip(i, j, rel, info)]
 
-    def run_pgo(self, iters: int = 22):
-        """Global pose-graph optimization over the whole trajectory: the
-        recorded per-keyframe odometry measurements (`arc.kf_rel`, refreshed
-        after BA) between consecutive keyframes, with unit information, and
-        the loop edges with their PnP information; poses and edges padded
-        to multiples of 64 as in the reference. Keyframe poses are written
-        back and landmarks re-anchored through their first observing
-        keyframe (`pgo_keyframes`, `pgo_landmarks`). Returns {frame_id:
-        (3, 4) pose}."""
+    def warm_pgo(self, kf_hint: int = 64, iters: int = 22) -> None:
+        """Capture the PGO graph of `run_pgo` at the padded size of
+        `kf_hint` keyframes (the reference's `warm_pgo`, which loads the
+        executable off the clock), on a placeholder graph of that size; a
+        run whose keyframes or edges pass the padded size captures its own
+        graph in `run_pgo`."""
+        Tp = _round_up(max(int(kf_hint), 3), 64)
+        eye34 = np.tile(np.eye(3, 4, dtype=np.float32)[None], (Tp, 1, 1))
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+        self.pgo.solve(PoseGraph(
+            poses=t(eye34), pose_valid=t(np.arange(Tp) < 3),
+            edge_i=t(np.clip(np.arange(Tp) % 3, 1, 2)),
+            edge_j=t(np.zeros(Tp, np.int64)), edge_meas=t(eye34),
+            edge_valid=t(np.arange(Tp) < 2),
+            edge_info=t(np.tile(np.eye(6, dtype=np.float32)[None],
+                                (Tp, 1, 1)))), iters=iters)
+
+    def pose_graph(self, keyframes: dict):
+        """The shutdown PGO's graph over `keyframes` (`drain`'s): the
+        odometry edges (unit information) and the loop edges (their PnP
+        information), poses and edges padded to multiples of 64; and the
+        pose slot of each keyframe id. None with fewer than 3 keyframes or
+        no loop edge."""
         edges = self.loop_edges()
-        keyframes, landmarks, _ = self.drain()
         kf_ids = sorted(keyframes)
         if len(kf_ids) < 3 or not edges:
-            return {fid: pose for fid, pose in keyframes.values()}
+            return None
         slot_of = {k: i for i, k in enumerate(kf_ids)}
         T = len(kf_ids)
         poses = np.stack([keyframes[k][1] for k in kf_ids]).astype(np.float32)
@@ -378,13 +456,35 @@ class FusedLoopVisualOdometry(fused.FusedVisualOdometry):
 
         def t(a):
             return torch.as_tensor(a, device=dev)
-        g = PoseGraph(
+        return PoseGraph(
             poses=t(poses_p), pose_valid=t(np.arange(Tp) < T),
             edge_i=t(np.pad(np.asarray(ei, np.int64), (0, Ep - E))),
             edge_j=t(np.pad(np.asarray(ej, np.int64), (0, Ep - E))),
             edge_meas=t(meas_p), edge_valid=t(np.arange(Ep) < E),
-            edge_info=t(info_p))
-        new_poses_p = optimize_pose_graph(g, iters=iters)
+            edge_info=t(info_p)), slot_of
+
+    def run_pgo(self, iters: int = 22):
+        """Global pose-graph optimization over the whole trajectory: the
+        recorded per-keyframe odometry measurements (`arc.kf_rel`, refreshed
+        after BA) between consecutive keyframes, with unit information, and
+        the loop edges with their PnP information; poses and edges padded
+        to multiples of 64 as in the reference, and solved by `self.pgo`
+        (on the card one graph replay per solve, a graph captured per
+        padded size). Keyframe poses are written back and landmarks
+        re-anchored through their first observing keyframe
+        (`pgo_keyframes`, `pgo_landmarks`). Returns {frame_id: (3, 4)
+        pose}."""
+        keyframes, landmarks, _ = self.drain()
+        problem = self.pose_graph(keyframes)
+        if problem is None:
+            return {fid: pose for fid, pose in keyframes.values()}
+        g, slot_of = problem
+        T = len(slot_of)
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+        new_poses_p = self.pgo.solve(g, iters=iters)
         new_poses = new_poses_p[:T].cpu().numpy()
         self.pgo_keyframes = {k: (keyframes[k][0], new_poses[s])
                               for k, s in slot_of.items()}
@@ -408,3 +508,74 @@ class FusedLoopVisualOdometry(fused.FusedVisualOdometry):
         ok = valid & (lm_id >= 0) & (lm_id < len(first))
         first[lm_id[ok]] = lm_first[ok]
         return first
+
+
+class ScanLoopVisualOdometry(FusedLoopVisualOdometry, fused.ScanVisualOdometry):
+    """Chunked dispatch for the loop-closure pipeline (the reference's
+    `ScanLoopVisualOdometry`, chunk 8): the chunks and the track graph of
+    `fused.ScanVisualOdometry`, and on a keyframe the graphs of the
+    keyframe branch and of the loop hook's stages, split at the hook's two
+    host reads: (keyframe, BA, eviction, embedding, descriptors, candidate
+    scan), the candidate gate read, (match, PnP RANSAC, edge record), the
+    correction gate read, (LocalFusion, landmark merge), then (database
+    insert, archive, output row). A keyframe replays two graphs without a
+    candidate, three with one, four with a correction. PGO stays a one-shot
+    step at shutdown (`run_pgo`, one graph replay)."""
+
+    def __init__(self, cfg: SlamConfig, dataset, chunk_size: int = 8, **kw):
+        super().__init__(cfg, dataset, chunk_size=chunk_size, **kw)
+
+    def initialize(self):
+        super().initialize()
+        self._hs = empty_scratch(self.cfg.max_features, device=self.device)
+        self._rel_new = torch.zeros((3, 4), device=self.device)
+        self._gates = self._hook().keywords
+
+    def _host_bool(self, x) -> bool:
+        self.hook_stats["host_reads"] += 1
+        return bool(x)
+
+    def _keyframe(self, run_ba: bool) -> None:
+        r = self.runner
+        r.run(("keyframe+scan", run_ba), lambda: self._kf_scan_graph(run_ba))
+        if self._host_bool(self._hs.candidate_ok):
+            r.run("attempt", self._attempt_graph)
+            if self._host_bool(self._hs.need_corr):
+                r.run("correct", self._correct_graph)
+        r.run("insert", self._insert_graph)
+
+    def _kf_scan_graph(self, run_ba: bool) -> list:
+        ids = self._kf_ids()
+        fs, ms, arc, rel_new = fused.keyframe_branch(
+            self.fs, self.ms, self.arc, self._right_pyr, ids, self.cam_left,
+            self.cam_right, run_ba, **self._static)
+        ls, emb, desc, desc_ok, best, cand = hook_candidates(
+            self.ls, fs, fs.pyr[0], ids.kf_id, **self._gates)
+        hs = self._hs
+        return [(self.fs, fs), (self.ms, ms), (self.arc, arc),
+                (self._rel_new, rel_new), (self.ls, ls),
+                ((hs.emb, hs.desc, hs.desc_ok, hs.best, hs.candidate_ok),
+                 (emb, desc, desc_ok, best, cand))]
+
+    def _attempt_graph(self) -> list:
+        hs = self._hs
+        ls, idx, fuse, T_corr, need = hook_attempt(
+            self.ls, self.fs, hs.desc, hs.desc_ok, hs.best, self._ids[1],
+            **self._gates)
+        return [(self.ls, ls), ((hs.match_idx, hs.fuse, hs.T_corr,
+                                 hs.need_corr), (idx, fuse, T_corr, need))]
+
+    def _correct_graph(self) -> list:
+        hs = self._hs
+        fs, ms = hook_correct(self.fs, self.ms, self.ls, hs.best,
+                              hs.match_idx, hs.fuse, hs.T_corr)
+        return [(self.fs, fs), (self.ms, ms)]
+
+    def _insert_graph(self) -> list:
+        hs, ids = self._hs, self._kf_ids()
+        ls = hook_insert(self.ls, self.fs, self.ms, hs.emb, hs.desc,
+                         hs.desc_ok, ids.kf_id)
+        arc = fused.finish_keyframe(self.arc, self.fs, self.ms, ids,
+                                    self._rel_new)
+        return [(self.ls, ls), (self.arc, arc)] + self._out_row(
+            kf_inserted=True, kf_count=ids.kf_id, pose=self.fs.T_cur)

@@ -6,6 +6,9 @@ with the reference's slot order, so a test can compare two states tensor by
 tensor. Updates are functional (they return new tensors) and make no
 device->host reads: the reference's `lax.cond` on a full window becomes a
 select, and its static-size `nonzero` the sync-free `nonzero_static` below.
+Ids, slots and counts stay 0-d device tensors: a 0-d tensor used as a
+Python index is read on the host, so rows are taken with `row` and written
+with `set_row`, and a captured CUDA graph reads every id at its replay.
 
 Semantics preserved: a window of `num_active` keyframes with the eviction
 rule of the reference (the nearest keyframe if its SE(3)-log distance to the
@@ -92,19 +95,35 @@ def nonzero_static(mask: torch.Tensor, size: int, fill: int = -1):
     return out[:size]
 
 
+def as_value(val, like: torch.Tensor) -> torch.Tensor:
+    """`val` (a tensor or a Python scalar) as a tensor of `like`'s type and
+    device; a scalar is filled in on the device, not copied from the
+    host."""
+    if torch.is_tensor(val):
+        return val.to(dtype=like.dtype, device=like.device)
+    return torch.full((), val, dtype=like.dtype, device=like.device)
+
+
 def scatter_drop(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     """x.at[idx].set(val, mode="drop") for idx in [0, len(x)], where
     len(x) marks a dropped write; the kept indices must be distinct."""
     ext = torch.cat([x, x[:1]])
-    val = torch.as_tensor(val, dtype=x.dtype, device=x.device)
-    return ext.index_put((idx.to(torch.int64),), val)[:-1]
+    return ext.index_put((idx.to(torch.int64),), as_value(val, x))[:-1]
 
 
-def set_row(x: torch.Tensor, slot: torch.Tensor, val) -> torch.Tensor:
-    """x.at[slot].set(val) for a 0-d index tensor, without a host read."""
-    val = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+def row(x: torch.Tensor, slot) -> torch.Tensor:
+    """x[slot] for a 0-d index tensor (or an int), without a host read."""
+    if not torch.is_tensor(slot):
+        return x[slot]
+    return x.index_select(0, slot.reshape(1).to(torch.int64))[0]
+
+
+def set_row(x: torch.Tensor, slot, val) -> torch.Tensor:
+    """x.at[slot].set(val) for a 0-d index tensor (or an int), without a
+    host read."""
+    slot = torch.as_tensor(slot, device=x.device)
     return x.index_copy(0, slot.reshape(1).to(torch.int64),
-                        val.expand(x.shape[1:]).unsqueeze(0))
+                        as_value(val, x).expand(x.shape[1:]).unsqueeze(0))
 
 
 def _evict_choice(m: MapState, new_pose: torch.Tensor, min_dis_th: float = 0.2):
@@ -113,7 +132,7 @@ def _evict_choice(m: MapState, new_pose: torch.Tensor, min_dis_th: float = 0.2):
     d = torch.where(m.kf_valid, d, inf)
     near = torch.argmin(d)
     far = torch.argmax(torch.where(m.kf_valid, d, -inf))
-    return torch.where(d[near] < min_dis_th, near, far)
+    return torch.where(row(d, near) < min_dis_th, near, far)
 
 
 def _remove_keyframe_slot(m: MapState, slot: torch.Tensor):
@@ -121,9 +140,9 @@ def _remove_keyframe_slot(m: MapState, slot: torch.Tensor):
     landmarks left with none. Returns (map, archived_lm_mask)."""
     K, F = m.obs_lm.shape
     L = m.lm_valid.shape[0]
-    obs_lm_row = m.obs_lm[slot]
-    contrib = torch.where(m.obs_valid[slot] & (obs_lm_row >= 0),
-                          1 + m.obs_has_r[slot].to(i32),
+    obs_lm_row = row(m.obs_lm, slot)
+    contrib = torch.where(row(m.obs_valid, slot) & (obs_lm_row >= 0),
+                          1 + row(m.obs_has_r, slot).to(i32),
                           torch.zeros_like(obs_lm_row))
     safe_idx = torch.where(obs_lm_row >= 0, obs_lm_row,
                            torch.zeros_like(obs_lm_row)).to(torch.int64)
@@ -147,16 +166,17 @@ def _remove_keyframe_slot(m: MapState, slot: torch.Tensor):
 def insert_keyframe(m: MapState, pose, frame_id, kf_id, feat_uv_l, feat_uv_r,
                     feat_lm, feat_has_r, feat_valid, num_active: int = 10):
     """Insert a keyframe with its feature->landmark links, evicting one
-    first when the window holds `num_active`. Returns (map,
-    EvictedKeyframe)."""
+    first when the window holds `num_active`. `frame_id` and `kf_id` are
+    ints or 0-d integer tensors. Returns (map, EvictedKeyframe)."""
     L = m.lm_valid.shape[0]
     dev = pose.device
     full = m.kf_valid.sum() >= num_active
     evict_slot = _evict_choice(m, pose)
     m_ev, archived = _remove_keyframe_slot(m, evict_slot)
     ev = EvictedKeyframe(
-        happened=full, pose=m.kf_pose[evict_slot],
-        frame_id=m.kf_frame_id[evict_slot], kf_id=m.kf_id[evict_slot],
+        happened=full, pose=row(m.kf_pose, evict_slot),
+        frame_id=row(m.kf_frame_id, evict_slot),
+        kf_id=row(m.kf_id, evict_slot),
         lm_archived=archived & full, lm_pos=m.lm_pos,
         lm_first_kf=m.lm_first_kf, lm_id=m.lm_id)
     m = select(full, m_ev, m)
@@ -185,8 +205,9 @@ def insert_keyframe(m: MapState, pose, frame_id, kf_id, feat_uv_l, feat_uv_r,
 
 
 def add_landmarks(m: MapState, positions, create, first_kf_id):
-    """Allocate landmark slots for up to F new points. Returns (map, slots):
-    slots (F,) int32, -1 where `create` was False or the table was full."""
+    """Allocate landmark slots for up to F new points; `first_kf_id` an int
+    or a 0-d integer tensor. Returns (map, slots): slots (F,) int32, -1
+    where `create` was False or the table was full."""
     L = m.lm_valid.shape[0]
     F = positions.shape[0]
     free_slots = nonzero_static(~m.lm_valid, F)
@@ -196,8 +217,7 @@ def add_landmarks(m: MapState, positions, create, first_kf_id):
     ok = create & (slots >= 0)
     safe = torch.where(ok, slots, torch.full_like(slots, L))
     new_ids = (m.next_lm_id + order).to(i32)
-    first = torch.as_tensor(first_kf_id, dtype=i32,
-                            device=positions.device).expand(F)
+    first = as_value(first_kf_id, m.lm_first_kf).expand(F)
     m = m._replace(
         lm_pos=scatter_drop(m.lm_pos, safe, positions),
         lm_valid=scatter_drop(m.lm_valid, safe, True),
@@ -213,8 +233,7 @@ def add_drop(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     """x.at[idx].add(val, mode="drop") for idx in [0, len(x)], where len(x)
     marks a dropped update; repeated indices accumulate."""
     ext = torch.cat([x, x[:1]])
-    val = torch.as_tensor(val, dtype=x.dtype, device=x.device)
-    return ext.index_add(0, idx.to(torch.int64), val)[:-1]
+    return ext.index_add(0, idx.to(torch.int64), as_value(val, x))[:-1]
 
 
 def merge_loop_landmarks(m: MapState, feat_lm, feat_valid, kf_slot,
@@ -261,7 +280,7 @@ def merge_loop_landmarks(m: MapState, feat_lm, feat_valid, kf_slot,
     m_has = scatter_drop(torch.zeros((F,), dtype=torch.bool, device=dev),
                          tgt, True) & feat_valid & (m_id >= 0)
 
-    has_r = m.obs_has_r[kf_slot]
+    has_r = row(m.obs_has_r, kf_slot)
     obs_contrib = 1 + has_r.to(i32)          # per current feature
 
     # the loop landmark is still in the table -> relink to its slot
@@ -307,8 +326,8 @@ def merge_loop_landmarks(m: MapState, feat_lm, feat_valid, kf_slot,
                                   torch.where(ok, obs_contrib, zero)))
     new_link = torch.where(ok, slots, torch.where(relink, exist_slot,
                                                   feat_lm)).to(i32)
-    row = torch.where(ok | relink, new_link, m.obs_lm[kf_slot])
-    m = m._replace(obs_lm=set_row(m.obs_lm, kf_slot, row))
+    new_row = torch.where(ok | relink, new_link, row(m.obs_lm, kf_slot))
+    m = m._replace(obs_lm=set_row(m.obs_lm, kf_slot, new_row))
     return m, new_link
 
 

@@ -17,6 +17,7 @@ import torch
 from stereovision_slam_torch.geometry import se3
 from stereovision_slam_torch.geometry.camera import Camera, pixel2camera
 from stereovision_slam_torch.geometry.symeig import symeig_small
+from stereovision_slam_torch.slam.map_state import row
 from stereovision_slam_torch.slam.pose_solver import _chi2, solve_pose
 
 # Hypothesis sample size: a minimal 6-point DLT amplifies pixel noise too
@@ -31,7 +32,7 @@ def _smallest_eigvec(AtA: torch.Tensor, iters: int = 12) -> torch.Tensor:
     eye = torch.eye(d, dtype=AtA.dtype, device=AtA.device)
     tr = torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1)
     eps = 1e-6 * (tr / d + 1e-30)
-    LU, piv = torch.linalg.lu_factor(AtA + eps[..., None, None] * eye)
+    LU, piv, _ = torch.linalg.lu_factor_ex(AtA + eps[..., None, None] * eye)
     v = torch.full(AtA.shape[:-1], 1.0, dtype=AtA.dtype, device=AtA.device)
     v = v / torch.sqrt(torch.tensor(float(d), dtype=AtA.dtype))
     for _ in range(iters):
@@ -123,7 +124,7 @@ def pnp_ransac(cam: Camera, pts3d, uv, valid, uniform,
     err = torch.sqrt((u - uv[None, :, 0]) ** 2 + (v - uv[None, :, 1]) ** 2)
     inl = valid[None, :] & (err <= reproj_threshold) & (z > 0)
     best = torch.argmax(torch.sum(inl, dim=1))
-    T_cam, inliers0 = T_cam_h[best], inl[best]
+    T_cam, inliers0 = row(T_cam_h, best), row(inl, best)
 
     # LM refinement on the best inlier set, in the rig parameterization,
     # then once more after re-classifying every point at the refined pose

@@ -173,7 +173,7 @@ def _pcg(g, Ji, Jj, b, lam, diag_blocks, free, iters: int = 100,
     z = apply_M(r)
     p = z
     rz = torch.sum(r * z)
-    tiny = torch.tensor(1e-20, dtype=b.dtype, device=b.device)
+    tiny = torch.full((), 1e-20, dtype=b.dtype, device=b.device)
     for _ in range(iters):
         Ap = _hvp(g, Ji, Jj, lam, diag_blocks, free, p, reduce_fn)
         pAp = torch.sum(p * Ap)
@@ -189,40 +189,45 @@ def _pcg(g, Ji, Jj, b, lam, diag_blocks, free, iters: int = 100,
     return x
 
 
+def _lm_step(g: PoseGraph, poses, lam, W, cg_iters: int,
+             reduce_fn=_no_reduce):
+    """One LM iteration from (poses, lam): linearize, the block-Jacobi PCG
+    for the step, accept it when the chi2 drops. Returns (poses, lam)."""
+    T = g.poses.shape[0]
+    first = torch.argmax(g.pose_valid.to(torch.int32))
+    free = g.pose_valid & (torch.arange(T, device=poses.device) != first)
+
+    def total_chi2(p):
+        r, _, _ = _linearize(g._replace(poses=p), W, jacobians_too=False)
+        return reduce_fn(torch.sum(r * r, dim=tuple(range(1, r.dim()))))
+
+    gg = g._replace(poses=poses)
+    r, Ji, Jj = _linearize(gg, W)
+    b = -reduce_fn(_scatter(
+        T, g.edge_i, g.edge_j, torch.einsum("...ab,...a->...b", Ji, r),
+        torch.einsum("...ab,...a->...b", Jj, r)))
+    D = _diag_blocks(gg, Ji, Jj, T, reduce_fn)
+    dx = _pcg(gg, Ji, Jj, b, lam, D, free, iters=cg_iters,
+              reduce_fn=reduce_fn)
+    poses_new = se3.se3_compose(se3.se3_exp(dx), poses)
+    better = total_chi2(poses_new) < total_chi2(poses)
+    return (torch.where(better, poses_new, poses),
+            torch.where(better, torch.clamp(lam * 0.5, min=1e-9),
+                        torch.clamp(lam * 4.0, max=1e6)))
+
+
 def _optimize(g: PoseGraph, iters: int, cg_iters: int,
               reduce_fn=_no_reduce) -> torch.Tensor:
     """The LM loop shared by the single-device and the sharded PGO. The
     edge fields of `g` have a leading rank axis; every edge sum below is a
     per-rank partial that `reduce_fn` completes, and the vertex state
     (poses, CG vectors) is kept once."""
-    T = g.poses.shape[0]
-    dt, dev = g.poses.dtype, g.poses.device
-    first = torch.argmax(g.pose_valid.to(torch.int32))
-    free = g.pose_valid & (torch.arange(T, device=dev) != first)
     # the whitening does not depend on the poses: factor the infos once
     W = _info_sqrt(g.edge_info) if g.edge_info is not None else None
-
-    def total_chi2(poses):
-        r, _, _ = _linearize(g._replace(poses=poses), W,
-                             jacobians_too=False)
-        return reduce_fn(torch.sum(r * r, dim=tuple(range(1, r.dim()))))
-
     poses = g.poses
-    lam = torch.tensor(1e-6, dtype=dt, device=dev)
+    lam = torch.full((), 1e-6, dtype=poses.dtype, device=poses.device)
     for _ in range(iters):
-        gg = g._replace(poses=poses)
-        r, Ji, Jj = _linearize(gg, W)
-        b = -reduce_fn(_scatter(
-            T, g.edge_i, g.edge_j, torch.einsum("...ab,...a->...b", Ji, r),
-            torch.einsum("...ab,...a->...b", Jj, r)))
-        D = _diag_blocks(gg, Ji, Jj, T, reduce_fn)
-        dx = _pcg(gg, Ji, Jj, b, lam, D, free, iters=cg_iters,
-                  reduce_fn=reduce_fn)
-        poses_new = se3.se3_compose(se3.se3_exp(dx), poses)
-        better = total_chi2(poses_new) < total_chi2(poses)
-        poses = torch.where(better, poses_new, poses)
-        lam = torch.where(better, torch.clamp(lam * 0.5, min=1e-9),
-                          torch.clamp(lam * 4.0, max=1e6))
+        poses, lam = _lm_step(g, poses, lam, W, cg_iters, reduce_fn)
     return poses
 
 
@@ -232,6 +237,59 @@ def optimize_pose_graph(g: PoseGraph, iters: int = 22,
     (T, 3, 4) poses. The valid slot with the smallest index is held fixed
     (the reference fixes keyframe 0)."""
     return _optimize(_edge_ranks(g), iters, cg_iters)
+
+
+class PoseGraphSolver:
+    """`optimize_pose_graph` through one CUDA graph per padded size (the
+    reference jits `run_pgo` once per padded size). The graph holds one LM
+    iteration (linearization, the PCG steps, the accept test); a solve
+    copies the poses and edges into
+    static buffers of their size (padded by the caller, as `run_pgo`
+    does), factors the edge whitening eagerly and replays the graph once
+    an iteration. A graph of the whole solve costs as much host time to
+    capture as an eager solve (it records every launch), so that it paid
+    only where a size recurs; one iteration captures in a 22nd of that,
+    and the replays run the same kernels. The whitening is the one graph
+    boundary: `torch.linalg.eigh` checks its result on the host, which a
+    capture refuses. A size met for the first time is captured after a
+    warm-up of the same operators with one PCG step. On the CPU the same
+    iterations run eagerly. `replays` counts the graph's replays."""
+
+    def __init__(self, device):
+        from stereovision_slam_torch.slam.graphs import GraphRunner
+
+        self.runner = GraphRunner(device, modules=())
+        self._bufs: dict = {}
+
+    def solve(self, g: PoseGraph, iters: int = 22,
+              cg_iters: int = 100) -> torch.Tensor:
+        """The refined (T, 3, 4) poses, equal to `optimize_pose_graph(g,
+        iters, cg_iters)`; `g` must carry `edge_info`."""
+        key = (g.poses.shape[0], g.edge_i.shape[0], cg_iters)
+        bufs = self._bufs.get(key)
+        if bufs is None:
+            gs = PoseGraph(*(torch.empty_like(t) for t in g))
+            bufs = self._bufs[key] = (
+                gs, torch.empty_like(g.edge_info), torch.empty_like(g.poses),
+                torch.empty((), dtype=g.poses.dtype, device=g.poses.device))
+        gs, W, poses, lam = bufs
+        for a, b in zip(gs, g):
+            a.copy_(b)
+        W.copy_(_info_sqrt(g.edge_info))
+        poses.copy_(g.poses)
+        lam.fill_(1e-6)
+        ge = _edge_ranks(gs)
+
+        def step(m):
+            return lambda: [((poses, lam),
+                             _lm_step(ge, poses, lam, W[None], m))]
+        for _ in range(iters):
+            self.runner.run(key, step(cg_iters), warm=step(1))
+        return poses.clone()
+
+    @property
+    def replays(self) -> int:
+        return self.runner.replays
 
 
 def reanchor_landmarks(lm_pos, lm_first_kf, old_poses, new_poses,

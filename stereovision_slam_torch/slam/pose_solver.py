@@ -18,6 +18,7 @@ import torch
 
 from stereovision_slam_torch.geometry import jacobians, se3
 from stereovision_slam_torch.geometry.camera import Camera
+from stereovision_slam_torch.slam.map_state import row
 
 
 def _solve_damped(H, b, lam):
@@ -27,7 +28,7 @@ def _solve_damped(H, b, lam):
     damped = (H + lam[..., None, None]
               * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1))
               + 1e-10 * eye)
-    return torch.linalg.solve(damped, -b)
+    return torch.linalg.solve_ex(damped, -b)[0]
 
 
 def _chi2(cam: Camera, T, points, obs):
@@ -49,8 +50,8 @@ def _lm_rounds(cam: Camera, T_init, points, obs, valid, chi2_th: float,
     for rnd in range(rounds):
         use_huber = rnd < rounds - 1
         # graduated non-convexity: early rounds loosen the robust threshold
-        round_th = torch.tensor(chi2_th * float(2 ** (rounds - 1 - rnd)),
-                                dtype=dtype, device=T.device)
+        round_th = torch.full((), chi2_th * float(2 ** (rounds - 1 - rnd)),
+                              dtype=dtype, device=T.device)
 
         def robust(c):
             if not use_huber:
@@ -105,8 +106,8 @@ def solve_pose_multi(cam: Camera, T_inits, points, obs_uv, valid,
     costs = torch.sum(torch.where(valid, torch.clamp(c, max=chi2_th),
                                   torch.full_like(c, chi2_th)), dim=-1)
     best = torch.argmin(costs)
-    inlier = inliers[best]
-    return Ts[best], inlier, inlier.sum().to(torch.int32)
+    inlier = row(inliers, best)
+    return row(Ts, best), inlier, inlier.sum().to(torch.int32)
 
 
 def solve_pose(cam: Camera, T_init, points, obs_uv, valid,

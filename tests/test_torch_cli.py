@@ -3,8 +3,9 @@ in process with `--device cpu`, on a fabricated KITTI directory of 8
 frames built as tests/test_apps_io.py builds its own: classic and fused
 modes write keyframes.txt and landmarks.pcd and close no loop on the
 straight line; a fused run resumed from its checkpoint writes the
-uninterrupted run's keyframes; `--mode scan` is refused; and without
-`--device` the command line asks for the card.
+uninterrupted run's keyframes; `--mode scan` and `--mode unrolled` (the
+chunked modes) write the fused run's keyframes; an unknown mode is
+refused; and without `--device` the command line asks for the card.
 """
 
 import dataclasses
@@ -110,11 +111,27 @@ def test_cli_fused_resume(kitti_dir, tmp_path):
         np.testing.assert_array_equal(pa, pb)
 
 
+@pytest.mark.parametrize("mode", ["scan", "unrolled"])
+def test_cli_chunked_modes(kitti_dir, tmp_path, capsys, mode):
+    """The chunked modes write the fused run's keyframes, bit for bit on
+    the CPU (the scene has no loop to close)."""
+    runs = {m: run_slam.run(run_slam.parse_args(
+        [_config(tmp_path, kitti_dir, m), "--device", "cpu", "--mode", m]))
+        for m in ("fused", mode)}
+    assert any(line.startswith(f"SLAM finished ({mode})")
+               for line in runs[mode]["lines"])
+    a, b = (_keyframes(runs[m]["output"]) for m in ("fused", mode))
+    assert [f for f, _ in a] == [f for f, _ in b] and len(a) >= 2
+    for (_, pa), (_, pb) in zip(a, b):
+        np.testing.assert_array_equal(pa, pb)
+
+
 def test_cli_refuses_unported_modes(kitti_dir, tmp_path, capsys):
-    cfg = _config(tmp_path, kitti_dir, "scan")
-    assert run_slam.main([cfg, "--device", "cpu", "--mode", "scan"]) == 1
-    assert "item 3" in capsys.readouterr().out
+    """Every mode of the reference's command line is ported: an unknown
+    mode and a missing config are refused."""
+    cfg = _config(tmp_path, kitti_dir, "fast")
     assert run_slam.main([cfg, "--device", "cpu", "--mode", "fast"]) == 1
+    assert "expected classic|fused|scan|unrolled" in capsys.readouterr().out
     assert run_slam.main([str(tmp_path / "missing.yaml")]) == 1
 
 

@@ -427,3 +427,122 @@ def test_classic_pipeline_cuda_matches_cpu(dev):
     assert sorted(card) == sorted(cpu) and len(card) >= 3
     for f in card:
         np.testing.assert_allclose(card[f], cpu[f], rtol=0, atol=1e-2)
+
+
+def _circuit_run(cls, dev, n: int, **kw):
+    """`cls` over the circuit's first n frames on `dev` with the bench's
+    settings; the launch counters of kernels A and B read around the run."""
+    from stereovision_slam_torch.io.dataset import ArraySequenceDataset
+    from stereovision_slam_torch.slam.config import SlamConfig
+
+    lefts, rights, _, _, rig = scenes.circuit(120, 188, 620, device=dev)
+    cfg = SlamConfig(num_features=250, num_features_needed_for_keyframe=160,
+                     lk_max_iters=12, pose_rounds=3, pose_iters_per_round=6,
+                     ba_lm_iters=6)
+    vo = cls(cfg, ArraySequenceDataset(lefts[:n], rights[:n], list(rig)),
+             max_total_keyframes=512, max_total_landmarks=1 << 16,
+             device=dev, **kw)
+    vo.initialize()
+    before = (lk_lanes.launch_count, pk.launch_count)
+    vo.run()
+    return vo, (lk_lanes.launch_count - before[0], pk.launch_count - before[1])
+
+
+def test_chunked_capture_matches_eager(dev):
+    """`ScanVisualOdometry` (chunk 5: two padded rows) over the circuit's
+    first 12 frames on the card against the eager `FusedVisualOdometry`:
+    the track and keyframe graphs replayed, kernels A and B launched from
+    them (the counters: one launch per LK call and per pose solve, plus
+    the warm-ups'), the same keyframes and inlier counts, every float state
+    tensor within 1e-5 relative to max(1, |value|), the rest equal."""
+    from stereovision_slam_torch.slam import fused, graphs
+
+    eager, (a_e, b_e) = _circuit_run(fused.FusedVisualOdometry, dev, 12)
+    scan, (a_s, b_s) = _circuit_run(fused.ScanVisualOdometry, dev, 12,
+                                    chunk_size=5)
+    r = scan.runner
+    assert r.replays >= 11 and {"track", ("keyframe", True)} <= set(r.graphs)
+    warm = r.warm_launches
+    assert a_s == a_e + warm[lk_lanes.__name__] and a_e > 0
+    assert b_s == b_e + warm[pk.__name__] and b_e == 11
+    fe, fs = eager.outputs, scan.outputs
+    assert [int(o.n_inliers) for _, o in fe] == \
+        [int(o.n_inliers) for _, o in fs]
+    assert [bool(o.kf_inserted) for _, o in fe] == \
+        [bool(o.kf_inserted) for _, o in fs]
+    for name in ("fs", "ms", "arc"):
+        for x, y in zip(graphs.leaves(getattr(eager, name)),
+                        graphs.leaves(getattr(scan, name))):
+            if x.dtype.is_floating_point:
+                gap = ((x - y).abs() / y.abs().clamp(min=1.0)).max()
+                assert float(gap) <= 1e-5, name
+            else:
+                assert torch.equal(x, y), name
+
+
+def test_graph_runner_raises_on_a_host_read(dev):
+    """A host read inside the captured function makes the capture fail:
+    the runner raises, keeps no graph and makes none of the function's
+    writes, and the process goes on using the card. In a child process,
+    so that a failed capture cannot touch the other tests."""
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent("""
+        import torch
+        from stereovision_slam_torch.slam.graphs import GraphRunner
+        runner = GraphRunner("cuda")
+        x = torch.arange(4.0, device="cuda")
+        out = torch.zeros((), device="cuda")
+
+        def fn():
+            y = x * 2 if bool(x.sum() > 0) else x
+            return [(out, y.sum())]
+        try:
+            runner.run("read", fn)
+        except RuntimeError as e:
+            print("raised a RuntimeError:", type(e).__name__)
+        print("graphs", len(runner.graphs), "out", float(out))
+        print("after", float((x + 1).sum()))
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert "raised a RuntimeError" in res.stdout, res.stdout + res.stderr
+    assert "graphs 0 out 0.0" in res.stdout
+    assert "after 10.0" in res.stdout
+
+
+def test_graph_runner_counts_launches_per_replay(dev):
+    """Kernel A inside a captured function: the warm-up launches it once,
+    the capture launches nothing, and every replay adds one launch to its
+    counter; the replayed result equals an eager call's, and follows new
+    inputs copied into the static buffers."""
+    from stereovision_slam_torch.slam.graphs import GraphRunner
+
+    lefts, _, _, _, _ = scenes.circuit(120, 188, 620, device=dev)
+    pyr = [imops.build_pyramid(torch.as_tensor(lefts[i], device=dev), 3)
+           for i in (0, 1)]
+    g = torch.Generator().manual_seed(0)
+    pts = (torch.rand((1, 64, 2), generator=g) * torch.tensor([560., 140.])
+           + torch.tensor([30., 20.])).to(dev)
+    prev = [lv[None].clone() for lv in pyr[0]]
+    cur = [lv[None].clone() for lv in pyr[1]]
+    mask = torch.ones((1, 64), dtype=torch.bool, device=dev)
+    uv = torch.zeros_like(pts)
+    runner = GraphRunner(dev)
+
+    def fn():
+        out, _, _ = lk_lanes.lk_pyramid(prev, cur, pts, pts, mask)
+        return [(uv, out)]
+    before = lk_lanes.launch_count
+    for i in range(3):
+        runner.run("lk", fn)
+        assert lk_lanes.launch_count == before + 2 + i   # warm-up + replays
+    assert runner.replays == 3 and runner.warm_launches[lk_lanes.__name__] == 1
+    want, _, _ = lk_lanes.lk_pyramid(prev, cur, pts, pts, mask)
+    assert torch.equal(uv, want)
+    pts.add_(1.0)
+    runner.run("lk", fn)
+    want, _, _ = lk_lanes.lk_pyramid(prev, cur, pts, pts, mask)
+    assert torch.equal(uv, want)
