@@ -91,6 +91,27 @@ Phases, in order; any failure exits non-zero:
      iteration, replayed 22 times a solve) held to the eager
      `optimize_pose_graph` within 1e-6 relative, both timed.
 
+ 16. the dense tool (`apps.run_dense_reconstruction`) on "cuda" over
+     phase 14's fused run (cameras 2 / 3, colour PNGs whose channels
+     differ; 128 disparities, block 15, SOR meanK 50 sigma 1, voxel 0.02
+     m): points after each filter, ms a keyframe by stage, wall time and
+     peak memory; (a) the first keyframe held to the card machine's CPU,
+     (b) batches of 4 keyframes equal to the serial run bit for bit, (c)
+     the share of kept points on the arena's ground or wall, (d) the PCD
+     read back with the frames' colours;
+ 17. MobileNet-V2: a seeded torchvision-layout state dict written as ONNX
+     and loaded back, the embedding on the card held to the CPU and timed,
+     then `FusedLoopVisualOdometry` with it over the circuit and the
+     classic command line with `dnn_weights_path` at the file ('auto'
+     picks MobileNet): every frame tracked, keyframe ATE under 2%; loops
+     and ATE after PGO printed; `ScanLoopVisualOdometry` with the
+     MobileNet hook in its graphs held to the eager run as in 15 (a);
+ 18. FAST (`keypoint_feature_detector: ORB`): `fast.detect` on the card
+     held to the CPU, `FusedVisualOdometry` with ORB over the circuit
+     with the slice's gates, `ScanVisualOdometry` with FAST in its
+     keyframe graph held to the eager run as in 15 (a), and the serving
+     cell's four streams with ORB under phase 7's gates but the ATE's.
+
 Phases 2, 3 and 6 also check the sizes the kernels once refused (kernel
 A's windows 21 and 31, kernel B at 2048 points, kernel C's patch 21) and
 time them. The last lines are the kernel table (JSON), the nvidia-smi
@@ -194,6 +215,28 @@ CHUNK_HOLD_FRAMES = 15
 CHUNK_STATE_TOL = 1e-5
 PGO_GRAPH_TOL = 1e-6
 CHUNK_PROFILE_FRAMES = 32
+# phase 16: the dense tool on phase 14's fused run. (a) card against the
+# card machine's CPU on the first keyframe: texture-gate and SOR-threshold
+# margins as tests/test_torch_stereo_bm.py and test_torch_sor.py state
+# them, points within 1e-5 relative; (c) the share of kept points within
+# ARENA_BAND of the arena's ground plane or wall
+DENSE_GATE_MARGIN = 1e-5
+DENSE_KEEP_MARGIN = 1e-4
+DENSE_POINT_RTOL = 1e-5
+ARENA_BAND = 0.5          # m
+ARENA_GROUND_Y, ARENA_CENTER, ARENA_RADIUS = 1.7, (0.0, 6.0), 25.0
+DENSE_BATCH = 4
+# phase 17: MobileNet-V2 on the card against the CPU (the tolerances of
+# tests/test_torch_mobilenet.py against the reference)
+MNV2_COS_MIN = 0.999
+MNV2_EMB_TOL = 5e-3
+# phase 16 (c): the JAX package's dense cloud of the card's fused run's 34
+# keyframes, on the CPU, keeps 96.84% of its points on the arena (96.57% at
+# the 33 keyframes of the port's CPU run; tests/torch_slice9_reference.py
+# --dense; the port on the card 96.77%); the packages differ only in SOR
+# decisions at the threshold and what follows from them, so the gate sits
+# below both
+DENSE_ARENA_MIN = 0.95
 
 
 def check(ok: bool, msg: str) -> None:
@@ -674,14 +717,16 @@ def bench_config():
     return cfg
 
 
-def slice_vo(lefts, rights, rig, device):
-    """An initialized `FusedVisualOdometry` over the frames."""
+def slice_vo(lefts, rights, rig, device, cfg=None, cls=None, **kw):
+    """An initialized `FusedVisualOdometry` (or `cls`) over the frames,
+    the bench's settings unless `cfg`."""
     from stereovision_slam_torch.io.dataset import ArraySequenceDataset
     from stereovision_slam_torch.slam.fused import FusedVisualOdometry
 
-    vo = FusedVisualOdometry(bench_config(), ArraySequenceDataset(
-        lefts, rights, list(rig)), max_total_keyframes=512,
-        max_total_landmarks=1 << 16, device=device)
+    vo = (cls or FusedVisualOdometry)(
+        cfg or bench_config(), ArraySequenceDataset(lefts, rights, list(rig)),
+        max_total_keyframes=512, max_total_landmarks=1 << 16, device=device,
+        **kw)
     vo.initialize()
     return vo
 
@@ -1057,32 +1102,62 @@ def loop_phase(label: str, scene, counters, dev, place_params):
     return launches, a_err, b_err, failed + missed, info
 
 
-def write_png_gray(path: str, img) -> None:
-    """An 8-bit greyscale PNG of a (H, W) uint8 array: filter 0 on every
-    row, zlib level 1."""
+def write_png(path: str, img) -> None:
+    """An 8-bit PNG of a (H, W) greyscale or (H, W, 3) RGB uint8 array:
+    filter 0 on every row, zlib level 1."""
     import struct
     import zlib
 
     import numpy as np
 
-    H, W = img.shape
-    raw = np.concatenate([np.zeros((H, 1), np.uint8), img], axis=1).tobytes()
+    H, W = img.shape[:2]
+    rows = img.reshape(H, -1)
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], axis=1).tobytes()
+    colour = 2 if img.ndim == 3 else 0
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour, 0,
+                                             0, 0))
                 + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def arena_share(points) -> float:
+    """The share of points within ARENA_BAND of the circuit arena's ground
+    plane (y = 1.7) or cylindrical wall (radius 25 about x, z = 0, 6)."""
+    import numpy as np
+
+    p = np.asarray(points, np.float64)
+    if not len(p):
+        return 0.0
+    wall = np.abs(np.hypot(p[:, 0] - ARENA_CENTER[0],
+                           p[:, 2] - ARENA_CENTER[1]) - ARENA_RADIUS)
+    ground = np.abs(p[:, 1] - ARENA_GROUND_Y)
+    return float(np.mean((wall <= ARENA_BAND) | (ground <= ARENA_BAND)))
+
+
+def rgb_frames(seq):
+    """(T, H, W, 3) uint8 colour frames of a greyscale sequence whose three
+    channels differ: (0.9 q + 20, q, 1.1 q - 20) of the rounded frame q,
+    rounded and clipped, so their mean is q up to the clipping."""
+    import numpy as np
+
+    q = np.clip(np.rint(seq), 0, 255)
+    return np.stack([np.clip(np.rint(0.9 * q + 20.0), 0, 255), q,
+                     np.clip(np.rint(1.1 * q - 20.0), 0, 255)],
+                    axis=-1).astype(np.uint8)
 
 
 def write_kitti_sequence(root: str, lefts, rights, rig):
     """The scene as a KITTI sequence at full resolution: image_0 / image_1
-    PNGs with every pixel of the rounded frame doubled (the loader's 2x
-    nearest-neighbour decimation gives the frame back), and a calib.txt of
-    the rig at full resolution (P1 and P3 with tx = -fx b). Returns the
-    rounded (T, H, W) uint8 frames, left and right."""
+    greyscale and image_2 / image_3 colour (`rgb_frames`) PNGs with every
+    pixel of the rounded frame doubled (the loader's 2x nearest-neighbour
+    decimation gives the frame back), and a calib.txt of the rig at full
+    resolution (P1 and P3 with tx = -fx b). Returns the rounded (T, H, W)
+    uint8 frames, left and right."""
     import numpy as np
 
     left, right = rig
@@ -1099,13 +1174,18 @@ def write_kitti_sequence(root: str, lefts, rights, rig):
         os.makedirs(os.path.join(root, sub))
         q = np.clip(np.rint(seq), 0, 255).astype(np.uint8)
         for i, img in enumerate(q):
-            write_png_gray(os.path.join(root, sub, f"{i:06d}.png"),
-                           np.repeat(np.repeat(img, 2, axis=0), 2, axis=1))
+            write_png(os.path.join(root, sub, f"{i:06d}.png"),
+                      np.repeat(np.repeat(img, 2, axis=0), 2, axis=1))
         out.append(q)
+    for sub, seq in (("image_2", lefts), ("image_3", rights)):
+        os.makedirs(os.path.join(root, sub))
+        for i, img in enumerate(rgb_frames(seq)):
+            write_png(os.path.join(root, sub, f"{i:06d}.png"),
+                      np.repeat(np.repeat(img, 2, axis=0), 2, axis=1))
     return out
 
 
-def cli_phase(scene, counters, dev):
+def cli_phase(scene, counters, dev, tmp: str):
     """Phase 14: the command line on a KITTI sequence. The circuit written
     as a KITTI directory and read back by the loader; then
     `apps.run_slam` on "cuda" with the bench's settings and
@@ -1114,13 +1194,13 @@ def cli_phase(scene, counters, dev):
     checkpoints every CLI_CHECKPOINT_EVERY frames and a resume from the
     last one (its keyframes.txt held to the uninterrupted fused run's), and
     a fused run with the config's default (MobileNet-tuned) loop gates, a
-    finding only. The counters are set to 0 before each run. Returns
-    ({path: launches}, kernel A error, kernel B error, the holds and gates
-    missed), which main() gates after reporting everything."""
+    finding only. The counters are set to 0 before each run. The sequence
+    and the runs' outputs go under `tmp`, which the caller removes.
+    Returns ({path: launches}, kernel A error, kernel B error, the holds
+    and gates missed, {"sequence": the KITTI folder, "fused": the fused
+    run's output folder}), which main() gates after reporting
+    everything."""
     import dataclasses
-    import shutil
-    import tempfile
-
     import numpy as np
     import torch
     import yaml
@@ -1131,7 +1211,6 @@ def cli_phase(scene, counters, dev):
 
     lefts, rights, gt, dist, rig = scene
     T = len(lefts)
-    tmp = tempfile.mkdtemp(prefix="svslam_kitti_")
 
     def sync():
         if torch.device(dev).type == "cuda":
@@ -1214,94 +1293,93 @@ def cli_phase(scene, counters, dev):
                                                 "MISSED: " + "; ".join(bad)))
         missed.extend(bad)
 
-    try:
-        # (a) the sequence on disk and the loader
-        seq = os.path.join(tmp, "sequence")
-        t0 = time.perf_counter()
-        ql, qr = write_kitti_sequence(seq, lefts, rights, rig)
-        print(f"phase 14: wrote the circuit as a KITTI sequence ({T} frames, "
-              f"2 x {ql.shape[1] * 2}x{ql.shape[2] * 2} PNGs) in "
-              f"{time.perf_counter() - t0:.1f} s")
-        ds = KittiDataset(seq, device=dev)
-        ds.initialize()
-        cam_err = max(float((a - b.to(a.device)).abs().max())
-                      for ca, cb in zip(ds.cameras[:2], rig)
-                      for a, b in zip(ca, cb))
-        t0 = time.perf_counter()
-        frames = [ds.frame_by_id(i) for i in range(T)]
-        decode_ms = (time.perf_counter() - t0) * 1e3 / T
-        same = all(np.array_equal(f.left, ql[i].astype(np.float32))
-                   and np.array_equal(f.right, qr[i].astype(np.float32))
-                   for i, f in enumerate(frames))
-        print(f"phase 14: loader cameras within {cam_err:.2e} of the rig, "
-              f"{T} frames read back equal to the rounded scene: {same}, "
-              f"past the end: {ds.frame_by_id(T)}; decode {decode_ms:.2f} ms "
-              f"a stereo frame (Pillow, two PNGs, the card machine's host)")
-        if not (cam_err <= 1e-5 and same and ds.frame_by_id(T) is None):
-            missed.append(f"phase 14: the loader: cameras {cam_err:.2e}, "
-                          f"frames equal {same}")
+    # (a) the sequence on disk and the loader
+    seq = os.path.join(tmp, "sequence")
+    t0 = time.perf_counter()
+    ql, qr = write_kitti_sequence(seq, lefts, rights, rig)
+    print(f"phase 14: wrote the circuit as a KITTI sequence ({T} frames, "
+          f"2 greyscale and 2 colour {ql.shape[1] * 2}x{ql.shape[2] * 2} "
+          f"PNGs each) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ds = KittiDataset(seq, device=dev)
+    ds.initialize()
+    cam_err = max(float((a - b.to(a.device)).abs().max())
+                  for ca, cb in zip(ds.cameras[:2], rig)
+                  for a, b in zip(ca, cb))
+    t0 = time.perf_counter()
+    frames = [ds.frame_by_id(i) for i in range(T)]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / T
+    same = all(np.array_equal(f.left, ql[i].astype(np.float32))
+               and np.array_equal(f.right, qr[i].astype(np.float32))
+               for i, f in enumerate(frames))
+    print(f"phase 14: loader cameras within {cam_err:.2e} of the rig, "
+          f"{T} frames read back equal to the rounded scene: {same}, "
+          f"past the end: {ds.frame_by_id(T)}; decode {decode_ms:.2f} ms "
+          f"a stereo frame (Pillow, two PNGs, the card machine's host)")
+    if not (cam_err <= 1e-5 and same and ds.frame_by_id(T) is None):
+        missed.append(f"phase 14: the loader: cameras {cam_err:.2e}, "
+                      f"frames equal {same}")
 
-        # (b) classic, the first frames' kernel launches held
-        r = cli("cli_classic", ["--mode", "classic"], hold=True)
-        vo = r["vo"]
-        report("cli_classic", r, vo.inlier_history, vo.kf_count + 1)
-        a_err, b_err, failed = hold_recorded(
-            r["records"], f"cli_classic (first {CLI_HOLD_FRAMES} frames)",
-            vo.cfg.num_features_tracking_bad)
-        missed += failed
-        jsonl = os.path.join(vo.cfg.output_dir, "viewer.jsonl")
-        with open(jsonl) as f:
-            events = [json.loads(line)["event"] for line in f]
-        print(f"cli_classic: viewer transcript {len(events)} events "
-              f"({', '.join(f'{e} {events.count(e)}' for e in sorted(set(events)))})")
-        if not events:
-            missed.append("cli_classic: the viewer wrote no transcript")
+    # (b) classic, the first frames' kernel launches held
+    r = cli("cli_classic", ["--mode", "classic"], hold=True)
+    vo = r["vo"]
+    report("cli_classic", r, vo.inlier_history, vo.kf_count + 1)
+    a_err, b_err, failed = hold_recorded(
+        r["records"], f"cli_classic (first {CLI_HOLD_FRAMES} frames)",
+        vo.cfg.num_features_tracking_bad)
+    missed += failed
+    jsonl = os.path.join(vo.cfg.output_dir, "viewer.jsonl")
+    with open(jsonl) as f:
+        events = [json.loads(line)["event"] for line in f]
+    print(f"cli_classic: viewer transcript {len(events)} events "
+          f"({', '.join(f'{e} {events.count(e)}' for e in sorted(set(events)))})")
+    if not events:
+        missed.append("cli_classic: the viewer wrote no transcript")
 
-        # (c) fused
-        def fused_report(name: str, r: dict) -> None:
-            outs = r["vo"].outputs
-            report(name, r, [int(o.n_inliers) for _, o in outs[1:]],
-                   sum(bool(o.kf_inserted) for _, o in outs))
-        fused = cli("cli_fused", ["--mode", "fused"])
-        fused_report("cli_fused", fused)
+    # (c) fused
+    def fused_report(name: str, r: dict) -> None:
+        outs = r["vo"].outputs
+        report(name, r, [int(o.n_inliers) for _, o in outs[1:]],
+               sum(bool(o.kf_inserted) for _, o in outs))
+    fused = cli("cli_fused", ["--mode", "fused"])
+    fused_report("cli_fused", fused)
 
-        # (d) checkpoints, then a resume from the last one
-        ck = cli("cli_checkpointed", ["--mode", "fused", "--checkpoint-every",
-                                      str(CLI_CHECKPOINT_EVERY)])
-        last = (T // CLI_CHECKPOINT_EVERY) * CLI_CHECKPOINT_EVERY
-        res = cli("cli_resumed", ["--mode", "fused", "--resume", os.path.join(
-            ck["vo"].cfg.output_dir, run_slam.CHECKPOINT_NAME)])
-        said = f"({last} frames already processed)"
-        resumed_at = any(said in line for line in res["lines"])
+    # (d) checkpoints, then a resume from the last one
+    ck = cli("cli_checkpointed", ["--mode", "fused", "--checkpoint-every",
+                                  str(CLI_CHECKPOINT_EVERY)])
+    last = (T // CLI_CHECKPOINT_EVERY) * CLI_CHECKPOINT_EVERY
+    res = cli("cli_resumed", ["--mode", "fused", "--resume", os.path.join(
+        ck["vo"].cfg.output_dir, run_slam.CHECKPOINT_NAME)])
+    said = f"({last} frames already processed)"
+    resumed_at = any(said in line for line in res["lines"])
 
-        def gap(a: dict, b: dict) -> float:
-            if sorted(a) != sorted(b):
-                return float("inf")
-            return max(float(np.abs(a[f] - b[f]).max()) for f in a)
-        g_res, g_ck = gap(res["final"], fused["final"]), gap(
-            ck["final"], fused["final"])
-        print(f"cli_resumed: resumed after frame {last}: {resumed_at}; "
-              f"{len(res['final'])} keyframes against the uninterrupted "
-              f"run's {len(fused['final'])}, the same frame ids and poses "
-              f"within {g_res:.2e} (the checkpointed run's own within "
-              f"{g_ck:.2e}); launches A {by_path['cli_resumed']['lk_pyramid']}"
-              f", B {by_path['cli_resumed']['pose_lm']} over "
-              f"{T - last} frames")
-        if not (resumed_at and g_res <= 1e-5):
-            missed.append(f"cli_resumed: the resumed run is not the "
-                          f"uninterrupted one: resumed at {last} {resumed_at},"
-                          f" poses {g_res:.2e}")
+    def gap(a: dict, b: dict) -> float:
+        if sorted(a) != sorted(b):
+            return float("inf")
+        return max(float(np.abs(a[f] - b[f]).max()) for f in a)
+    g_res, g_ck = gap(res["final"], fused["final"]), gap(
+        ck["final"], fused["final"])
+    print(f"cli_resumed: resumed after frame {last}: {resumed_at}; "
+          f"{len(res['final'])} keyframes against the uninterrupted "
+          f"run's {len(fused['final'])}, the same frame ids and poses "
+          f"within {g_res:.2e} (the checkpointed run's own within "
+          f"{g_ck:.2e}); launches A {by_path['cli_resumed']['lk_pyramid']}"
+          f", B {by_path['cli_resumed']['pose_lm']} over "
+          f"{T - last} frames")
+    if not (resumed_at and g_res <= 1e-5):
+        missed.append(f"cli_resumed: the resumed run is not the "
+                      f"uninterrupted one: resumed at {last} {resumed_at},"
+                      f" poses {g_res:.2e}")
 
-        # (e) a finding, no gate: the default gates with PlaceNet
-        dflt = cli("cli_default_gates", ["--mode", "fused"])
-        print(f"cli_default_gates: the config's default (MobileNet-tuned) "
-              f"loop gates with PlaceNet close {dflt['loops']} loop(s) "
-              f"({[(e.kf_id, e.loop_kf_id) for e in dflt['vo'].loop_edges()]}"
-              f"), keyframe ATE {ate(dflt['odometry']):.4f} m, after PGO "
-              f"{ate(dflt['final']):.4f} m (a finding, not a gate)")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return by_path, a_err, b_err, missed
+    # (e) a finding, no gate: the default gates with PlaceNet
+    dflt = cli("cli_default_gates", ["--mode", "fused"])
+    print(f"cli_default_gates: the config's default (MobileNet-tuned) "
+          f"loop gates with PlaceNet close {dflt['loops']} loop(s) "
+          f"({[(e.kf_id, e.loop_kf_id) for e in dflt['vo'].loop_edges()]}"
+          f"), keyframe ATE {ate(dflt['odometry']):.4f} m, after PGO "
+          f"{ate(dflt['final']):.4f} m (a finding, not a gate)")
+    return by_path, a_err, b_err, missed, {"sequence": seq,
+                                           "fused": fused["output"]}
 
 
 def serving_streams(lefts, rights, gt):
@@ -1474,7 +1552,8 @@ def stream_ate(traj, gt) -> float:
 
     def center(p):
         return -p[:, :3].T @ p[:, 3]
-    errs = [np.linalg.norm(center(p) - center(gt[f])) for f, p in traj.items()]
+    errs = [np.linalg.norm(center(np.asarray(p)) - center(gt[f]))
+            for f, p in traj.items()]
     return float(np.sqrt(np.mean(np.square(errs))))
 
 
@@ -1993,6 +2072,8 @@ def state_gaps(a, b):
 
     gap, where, unequal = 0.0, "", []
     for name in ("fs", "ms", "arc", "ls"):
+        if getattr(a, name, None) is None:
+            continue
         for field, v in getattr(a, name)._asdict().items():
             w = getattr(getattr(b, name), field)
             for j, (x, y) in enumerate(zip(leaves(v), leaves(w))):
@@ -2009,11 +2090,13 @@ def state_gaps(a, b):
     return gap, where, unequal
 
 
-def loop_vo(cls, lefts, rights, rig, dev, params, **kw):
-    """An initialized loop pipeline over the frames, the bench's settings."""
+def loop_vo(cls, lefts, rights, rig, dev, params, cfg=None, **kw):
+    """An initialized loop pipeline over the frames, the bench's settings
+    with PlaceNet's loop gates unless `cfg`."""
     from stereovision_slam_torch.io.dataset import ArraySequenceDataset
 
-    vo = cls(loop_config(), ArraySequenceDataset(lefts, rights, list(rig)),
+    vo = cls(cfg or loop_config(), ArraySequenceDataset(lefts, rights,
+                                                        list(rig)),
              place_params=params, max_total_keyframes=512,
              max_total_landmarks=1 << 16, device=dev, **kw)
     vo.initialize()
@@ -2026,21 +2109,17 @@ def warm_counts(runner, counters) -> dict:
             for k, m in counters.items()}
 
 
-def chunk_hold(scene, counters, dev, params) -> list:
-    """Phase 15 (a): `ScanLoopVisualOdometry(chunk_size=8)` against
-    `FusedLoopVisualOdometry` over the circuit's first CHUNK_HOLD_FRAMES
-    frames (the init, tracking, keyframes with BA and a padded row).
-    Returns the holds missed."""
+def chunk_hold(label: str, make, counters) -> list:
+    """A chunked pipeline (chunks of 8) against its eager counterpart over
+    the circuit's first CHUNK_HOLD_FRAMES frames (the init, tracking,
+    keyframes with BA and a padded row): `make(chunked)` gives either,
+    initialized. Returns the holds missed."""
     import numpy as np
-    from stereovision_slam_torch.slam.fused_loop import (
-        FusedLoopVisualOdometry, ScanLoopVisualOdometry)
 
-    lefts, rights, _, _, rig = scene
     n = CHUNK_HOLD_FRAMES
     runs = []
-    for cls, kw in ((FusedLoopVisualOdometry, {}),
-                    (ScanLoopVisualOdometry, {"chunk_size": 8})):
-        vo = loop_vo(cls, lefts[:n], rights[:n], rig, dev, params, **kw)
+    for chunked in (False, True):
+        vo = make(chunked)
         for mod in counters.values():
             mod.launch_count = 0
         vo.run()
@@ -2057,7 +2136,8 @@ def chunk_hold(scene, counters, dev, params) -> list:
     warm = warm_counts(c.runner, counters)
     want = {k: le[k] + warm[k] for k in ("lk_pyramid", "pose_lm")}
     pad = int(c.out_buf.n_inliers[n])
-    print(f"phase 15 (a): {n} circuit frames, chunks of 8 ({8 - n % 8} "
+    print(f"{label}: {type(c).__name__} against {type(e).__name__}, {n} "
+          f"circuit frames, chunks of 8 ({8 - n % 8} "
           f"padded row(s), sentinel n_inliers {pad}): {c.runner.replays} "
           f"graph replays, graphs {sorted(map(str, c.runner.graphs))}; "
           f"{sum(ins)} keyframe steps; largest float gap to the eager run "
@@ -2068,14 +2148,14 @@ def chunk_hold(scene, counters, dev, params) -> list:
           f"chunked {lc}, eager {le}, warm-ups {warm}")
     missed = []
     if not (gap <= CHUNK_STATE_TOL and not unequal and same_in and same_kf):
-        missed.append(f"phase 15 (a): the chunked run is not the eager "
+        missed.append(f"{label}: the chunked run is not the eager "
                       f"one: {gap:.3e} at {where}, {unequal}")
     if not (sum(ins) >= 2 and n % 8 and pad == -1
             and c.runner.replays >= n - 1):
-        missed.append("phase 15 (a): the frames do not hold a keyframe "
+        missed.append(f"{label}: the frames do not hold a keyframe "
                       "with BA and a padded row")
     if any(lc[k] != want[k] for k in want):
-        missed.append(f"phase 15 (a): launches {lc}, not {want}")
+        missed.append(f"{label}: launches {lc}, not {want}")
     return missed
 
 
@@ -2339,14 +2419,18 @@ def chunked_phase(scenes_loop, slice_scene, counters, dev, params,
         FusedLoopVisualOdometry, ScanLoopVisualOdometry)
 
     t0 = time.perf_counter()
-    missed = chunk_hold(scenes_loop["circuit"], counters, dev, params)
+    lefts, rights, _, _, rig = scenes_loop["circuit"]
+    n = CHUNK_HOLD_FRAMES
+    missed = chunk_hold("phase 15 (a)", lambda chunked: loop_vo(
+        ScanLoopVisualOdometry if chunked else FusedLoopVisualOdometry,
+        lefts[:n], rights[:n], rig, dev, params,
+        **({"chunk_size": 8} if chunked else {})), counters)
     runs, paths = {}, {}
     for name, scene in scenes_loop.items():
         info, failed, vo = chunked_loop_run(name, scene, counters, dev,
                                             params, eager_loop[name])
         runs[name], paths[f"chunked_{name}"] = vo, info["launches"]
         missed += failed
-    lefts, rights, _, _, rig = scenes_loop["circuit"]
     n = CHUNK_PROFILE_FRAMES
     launch_profile("loop eager", loop_vo(
         FusedLoopVisualOdometry, lefts[:2 * n], rights[:2 * n], rig, dev,
@@ -2358,6 +2442,324 @@ def chunked_phase(scenes_loop, slice_scene, counters, dev, params,
     missed += pgo_graph_hold(runs["circuit"])
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     return paths, missed
+
+
+def dense_phase(paths: dict, tmp: str, dev,
+                save_keyframes: str | None = None) -> list:
+    """Phase 16: the dense tool's command line on "cuda" over phase 14's
+    fused run (cameras 2 / 3, colour, the reference's defaults): the
+    points after each filter, ms per keyframe by stage (`StageTimer`,
+    synchronized), wall time and peak memory; (a) the first keyframe held
+    to the card machine's CPU (disparity and validity away from the
+    texture gate's margin, points within DENSE_POINT_RTOL, the SOR masks
+    away from the threshold margin; the pixels and points inside the
+    margins counted); (b) `--mesh --per-device-batch DENSE_BATCH` equal to
+    the serial run bit for bit; (c) the share of kept points on the arena
+    against DENSE_ARENA_MIN; (d) the PCD read back, colours from the RGB
+    frames. `save_keyframes`: a path to copy the fused run's keyframes.txt
+    to (tests/torch_slice9_reference.py reconstructs them in the JAX
+    package). Returns the gates missed."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch.apps import run_dense_reconstruction as app
+    from stereovision_slam_torch.dense.reconstruction import (
+        DenseReconstruction)
+    from stereovision_slam_torch.io.pcd import read_pcd
+    from stereovision_slam_torch.ops import sor, stereo_bm
+
+    t_phase = time.perf_counter()
+    missed = []
+    yaml_path = os.path.join(tmp, "dense.yaml")
+    with open(yaml_path, "w") as f:
+        f.write("%YAML:1.0\n---\n"
+                f"slam_output_dir: {os.path.join(paths['fused'], 'keyframes.txt')}\n"
+                "left_cam_index: 2\nright_cam_index: 3\nis_color_input: 1\n")
+    if save_keyframes:
+        os.makedirs(os.path.dirname(os.path.abspath(save_keyframes)),
+                    exist_ok=True)
+        with open(os.path.join(paths["fused"], "keyframes.txt")) as src, \
+                open(save_keyframes, "w") as dst:
+            dst.write(src.read())
+
+    card = torch.device(dev).type == "cuda"
+
+    def cli(argv):
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = app.run(app.parse_args([yaml_path, "--device", str(dev)] + argv))
+        if card:
+            torch.cuda.synchronize()
+        r["wall_s"] = time.perf_counter() - t0
+        r["peak_gb"] = (torch.cuda.max_memory_allocated() / 2 ** 30 if card
+                        else float("nan"))
+        return r
+
+    serial = cli([])
+    dr = serial["dr"]
+    n_kf = dr.counts["keyframes"]
+    stages = dr.timer.summary()
+    print(f"phase 16: {n_kf} keyframes, points {dr.counts}; CLI wall "
+          f"{serial['wall_s']:.2f} s = {1e3 * serial['wall_s'] / n_kf:.1f} ms "
+          f"a keyframe, peak memory {serial['peak_gb']:.2f} GiB")
+    print("phase 16: ms a keyframe by stage (synchronized): " + ", ".join(
+        f"{k} {1e3 * v['total_s'] / n_kf:.2f}" for k, v in stages.items()))
+
+    # (b) batched over the one-card mesh
+    batched = cli(["--mesh", "--per-device-batch", str(DENSE_BATCH)])
+    same = (np.array_equal(batched["points"], serial["points"])
+            and np.array_equal(batched["colors"], serial["colors"]))
+    bst = batched["dr"].timer.summary()
+    print(f"phase 16 (b): --mesh --per-device-batch {DENSE_BATCH}: "
+          f"{len(batched['points'])} points against {len(serial['points'])}"
+          f", bit for bit: {same}; wall {batched['wall_s']:.2f} s, peak "
+          f"{batched['peak_gb']:.2f} GiB; disparity "
+          f"{1e3 * bst['disparity']['total_s'] / n_kf:.2f} ms a keyframe")
+    if not same:
+        missed.append("phase 16 (b): the batched cloud is not the serial one")
+
+    # (a) the first keyframe, card against CPU
+    fid, T_cw = dr.keyframes[0]
+    dr_cpu = DenseReconstruction(dr.cfg, device="cpu")
+    dr_cpu.initialize()
+    l, r, _ = dr._frame_arrays(fid)
+    L, R = torch.from_numpy(l), torch.from_numpy(r)
+    d_c, v_c = stereo_bm.compute_disparity(L.to(dev), R.to(dev))
+    d_h, v_h = stereo_bm.compute_disparity(L, R)
+    away = stereo_bm.texture_margin(L) > DENSE_GATE_MARGIN
+    px_diff = int(((d_c.cpu() != d_h) | (v_c.cpu() != v_h)).sum())
+    px_away = int((((d_c.cpu() != d_h) | (v_c.cpu() != v_h)) & away).sum())
+    p_c, ok_c = dr._points(l, r, T_cw)
+    p_h, ok_h = dr_cpu._points(l, r, T_cw)
+    ok_same = bool(torch.equal(ok_c.cpu(), ok_h))
+    ph = p_h[ok_h].numpy()
+    pc = p_c[ok_c].cpu().numpy() if ok_same else ph
+    p_err = float(np.max(np.abs(pc - ph) / np.maximum(np.abs(ph), 1.0)))
+    md_c, _ = sor.mean_knn_distances(ph, device=dev)
+    md_h, _ = sor.mean_knn_distances(ph, device="cpu")
+    keep_c, keep_h = sor.keep_mask(md_c), sor.keep_mask(md_h)
+    sor_away = sor.threshold_margin(md_h) > DENSE_KEEP_MARGIN
+    print(f"phase 16 (a): keyframe {fid}: {int(v_h.sum())} valid pixels, "
+          f"{px_diff} differ card/CPU ({int((~away).sum())} within "
+          f"{DENSE_GATE_MARGIN} of the texture gate, {px_away} differ "
+          f"outside it); points {len(ph)}, masks equal {ok_same}, largest "
+          f"relative gap {p_err:.2e}; SOR mean distances equal "
+          f"{np.array_equal(md_c, md_h)}, keep masks differ on "
+          f"{int((keep_c != keep_h).sum())} points "
+          f"({int((~sor_away).sum())} within {DENSE_KEEP_MARGIN} of the "
+          f"threshold)")
+    if not (px_away == 0 and ok_same and p_err <= DENSE_POINT_RTOL
+            and np.array_equal(keep_c[sor_away], keep_h[sor_away])):
+        missed.append(f"phase 16 (a): card and CPU differ: pixels {px_away}"
+                      f", points {ok_same} {p_err:.2e}, SOR")
+
+    # (c) the geometry: kept points on the arena's ground or wall
+    share = arena_share(serial["points"])
+    print(f"phase 16 (c): {100 * share:.2f}% of the kept points within "
+          f"{ARENA_BAND} m of the arena's ground plane or wall (gate "
+          f"{100 * DENSE_ARENA_MIN:.1f}%)")
+    if not share >= DENSE_ARENA_MIN:
+        missed.append(f"phase 16 (c): arena share {share:.4f} < "
+                      f"{DENSE_ARENA_MIN}")
+
+    # (d) the PCD read back; colours from the RGB frames, whose channels
+    # are (0.9 q + 20, q, 1.1 q - 20) of the grey frame q
+    pts, cols = read_pcd(serial["output"])
+    rgb_ok = bool(np.array_equal(cols, rgb_frames(
+        cols[:, 1].astype(np.float32))))
+    pcd_ok = (len(pts) == len(serial["points"])
+              and np.array_equal(pts, serial["points"])
+              and np.array_equal(cols, serial["colors"]))
+    print(f"phase 16 (d): the PCD reads back {len(pts)} points, equal: "
+          f"{pcd_ok}; colours from the RGB frames: {rgb_ok} "
+          f"({int((cols[:, 0] != cols[:, 2]).sum())} of {len(cols)} with "
+          f"R != B); phase 16 {time.perf_counter() - t_phase:.1f} s")
+    if not (pcd_ok and rgb_ok and len(pts) > 0):
+        missed.append(f"phase 16 (d): PCD {pcd_ok}, colours {rgb_ok}")
+    return missed
+
+
+def mobilenet_phase(scene, paths: dict, tmp: str, counters, dev):
+    """Phase 17: MobileNet-V2. A seeded torchvision-layout state dict
+    written as ONNX by the port's writer and read back by
+    `load_onnx_weights`; `embed_image` on the card held to the CPU
+    (cosine, largest difference, ms an embedding); then the circuit
+    through `FusedLoopVisualOdometry` with those parameters and the
+    bench's settings (the config's default, MobileNet-tuned loop gates),
+    and the classic command line with `dnn_weights_path` at the file
+    ('auto' must pick MobileNet). Gates: every frame tracked, keyframe ATE
+    before PGO under 2% of the path; loops and ATE after PGO printed. Then
+    `ScanLoopVisualOdometry` with the MobileNet hook in its CUDA graphs,
+    held to the eager run as phase 15 (a). Returns ({path: launches}, the
+    gates missed)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import yaml
+    from stereovision_slam_torch.apps import run_slam
+    from stereovision_slam_torch.models import mobilenet_v2 as mnv2
+    from stereovision_slam_torch.models import onnx_reader
+    from stereovision_slam_torch.slam.fused_loop import (
+        FusedLoopVisualOdometry, ScanLoopVisualOdometry)
+    from tests.torch_mnv2_weights import state_dict
+
+    lefts, rights, gt, dist, rig = scene
+    T = len(lefts)
+    missed, by_path = [], {}
+    onnx = os.path.join(tmp, "mobilenet_v2.onnx")
+    onnx_reader.write_onnx_initializers(onnx, state_dict(0))
+    params = mnv2.load_onnx_weights(onnx, device=dev)
+    params_cpu = mnv2.load_onnx_weights(onnx, device="cpu")
+    img = torch.from_numpy(lefts[T // 2])
+    e_h = mnv2.embed_image(params_cpu, img)
+    e_c = mnv2.embed_image(params, img.to(dev)).cpu()
+    cos = float(e_h @ e_c)
+    diff = float((e_h - e_c).abs().max())
+    ms = (cuda_ms(lambda: mnv2.embed_image(params, img.to(dev)), 20)
+          if torch.device(dev).type == "cuda" else float("nan"))
+    print(f"phase 17: MobileNet-V2 from ONNX ({os.path.getsize(onnx)} bytes)"
+          f": card against CPU cosine {cos:.7f}, largest difference "
+          f"{diff:.2e}; {ms:.3f} ms an embedding on the card (preprocess "
+          f"and forward, 224x224)")
+    if not (cos > MNV2_COS_MIN and diff < MNV2_EMB_TOL):
+        missed.append(f"phase 17: card/CPU embedding cos {cos}, diff {diff}")
+
+    def gates(name, n_in, ate_odo, ate_pgo, loops, fps, extra=""):
+        print(f"{name}: {T} frames, {fps:.2f} fps, keyframe ATE "
+              f"{ate_odo:.4f} m ({100 * ate_odo / dist:.3f}% of {dist:.1f} "
+              f"m), {loops} loops, after PGO {ate_pgo:.4f} m (loops and ATE "
+              f"after PGO printed, not gated){extra}")
+        bad = []
+        if not min(n_in) > 10:
+            bad.append(f"{name}: tracking collapsed ({min(n_in)} inliers)")
+        if not (np.isfinite(ate_odo) and ate_odo < 0.02 * dist):
+            bad.append(f"{name}: keyframe ATE {ate_odo:.4f} m")
+        missed.extend(bad)
+
+    # the fused loop path with the seeded network
+    vo = loop_vo(FusedLoopVisualOdometry, lefts, rights, rig, dev, params,
+                 cfg=bench_config())
+    for mod in counters.values():
+        mod.launch_count = 0
+    _, dt = timed(vo.run)
+    by_path["mnv2_loop"] = {k: m.launch_count for k, m in counters.items()}
+    keyframes, _, frames = vo.drain()
+    odo = {f: p for f, p in keyframes.values()}
+    traj = vo.run_pgo()
+    gates("mnv2 loop", [int(f.n_inliers) for _, f in frames[1:]],
+          stream_ate(odo, gt), stream_ate(traj, gt), len(vo.loop_edges()),
+          T / dt,
+          f"; {len(keyframes)} keyframes, launches A "
+          f"{by_path['mnv2_loop']['lk_pyramid']}, B "
+          f"{by_path['mnv2_loop']['pose_lm']}")
+
+    # the classic command line, 'auto' with the weights file
+    cfg = bench_config()
+    cfg.dataset_dir = paths["sequence"]
+    cfg.output_dir = os.path.join(tmp, "cli_mnv2")
+    cfg.loopclosure_on = cfg.backend_on = 1
+    cfg.visualizer_on = 0
+    cfg.dnn_weights_path = onnx
+    path = os.path.join(tmp, "cli_mnv2.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f)
+    for mod in counters.values():
+        mod.launch_count = 0
+    r = run_slam.run(run_slam.parse_args([path, "--device", str(dev),
+                                          "--mode", "classic"]))
+    by_path["mnv2_cli_classic"] = {k: m.launch_count
+                                   for k, m in counters.items()}
+    lc = r["vo"].loop_closure
+    from stereovision_slam_torch.slam.outputs import load_keyframes_file
+    _, _, kfs = load_keyframes_file(os.path.join(r["output"],
+                                                 "keyframes.txt"))
+    gates("mnv2 cli_classic", r["vo"].inlier_history,
+          stream_ate(r["odometry"], gt), stream_ate(dict(kfs), gt),
+          r["loops"], r["fps"], f"; embedder {lc.embedder}")
+    if lc.embedder != "mobilenet":
+        missed.append(f"phase 17: 'auto' picked {lc.embedder}")
+
+    # the hook inside the chunked path's graphs
+    n = CHUNK_HOLD_FRAMES
+    missed += chunk_hold("phase 17, chunked", lambda chunked: loop_vo(
+        ScanLoopVisualOdometry if chunked else FusedLoopVisualOdometry,
+        lefts[:n], rights[:n], rig, dev, params, cfg=bench_config(),
+        **({"chunk_size": 8} if chunked else {})), counters)
+    return by_path, missed
+
+
+def fast_phase(scene, counters, dev):
+    """Phase 18: FAST (`keypoint_feature_detector: ORB`). `fast.detect` on
+    the card held to the CPU on a circuit frame (the same corners, scores
+    within 1e-5 relative); `FusedVisualOdometry` with ORB and the bench's
+    settings over the circuit: fps, keyframes, ATE, with the slice's gates,
+    which the reference meets on the same run on the CPU (with its CPU
+    LK: 77 keyframes, 115 inliers at least, ATE 0.1414 m = 0.337% of the
+    path; with the lanes LK, the port's: 81, 108, 0.1257 m;
+    tests/torch_slice9_reference.py --fast [--lk lanes-interpret]);
+    `ScanVisualOdometry` with
+    ORB, FAST in its keyframe graph, held to the eager run as phase 15 (a);
+    the serving cell's streams with ORB, phase 7's gates but the ATE's.
+    Returns ({path: launches}, the gates missed)."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch.ops import fast
+    from stereovision_slam_torch.slam.fused import ScanVisualOdometry
+
+    lefts, rights, gt, dist, rig = scene
+    T = len(lefts)
+    missed = []
+    img = torch.from_numpy(lefts[T // 4])
+    p_c, v_c, s_c = fast.detect(img.to(dev), 250, min_distance=20)
+    p_h, v_h, s_h = fast.detect(img, 250, min_distance=20)
+    same = torch.equal(p_c.cpu(), p_h) and torch.equal(v_c.cpu(), v_h)
+    s_err = float(((s_c.cpu() - s_h).abs() / s_h.abs().clamp(min=1e-6))
+                  [v_h].max())
+    print(f"phase 18: fast.detect card/CPU: {int(v_h.sum())} corners, the "
+          f"same: {same}, scores within {s_err:.2e} relative")
+    if not (same and s_err <= 1e-5):
+        missed.append(f"phase 18: fast.detect card/CPU {same} {s_err:.2e}")
+
+    cfg = bench_config()
+    cfg.keypoint_feature_detector = "ORB"
+    vo = slice_vo(lefts, rights, rig, dev, cfg)
+    for mod in counters.values():
+        mod.launch_count = 0
+    _, dt = timed(vo.run)
+    launches = {k: m.launch_count for k, m in counters.items()}
+    keyframes, landmarks, frames = vo.drain()
+    n_in = np.array([int(f.n_inliers) for _, f in frames])
+    ate = stream_ate({f: p for f, p in keyframes.values()}, gt)
+    print(f"fast slice: {T} frames in {dt:.3f} s = {T / dt:.2f} fps, "
+          f"{len(keyframes)} keyframes, {len(landmarks)} landmarks, "
+          f"n_inliers min {n_in[1:].min()}, keyframe ATE {ate:.4f} m "
+          f"({100 * ate / dist:.3f}% of {dist:.1f} m); launches A "
+          f"{launches['lk_pyramid']}, B {launches['pose_lm']}")
+    gates = {
+        f"{len(keyframes)} keyframes, {len(landmarks)} landmarks":
+            len(keyframes) >= 2 and len(landmarks) > 50,
+        f"tracking collapsed: n_inliers down to {n_in[1:].min()}":
+            bool(np.all(n_in[1:] > 10)),
+        f"keyframe ATE {ate:.4f} m over {dist:.1f} m":
+            bool(np.isfinite(ate) and ate < 0.02 * dist),
+        f"kernel B launched {launches['pose_lm']} times, not {T - 1}":
+            launches["pose_lm"] == T - 1}
+    missed += [f"fast slice: {m}" for m, ok in gates.items() if not ok]
+
+    n = CHUNK_HOLD_FRAMES
+    missed += chunk_hold("phase 18, chunked", lambda chunked: slice_vo(
+        lefts[:n], rights[:n], rig, dev, cfg,
+        **({"cls": ScanVisualOdometry, "chunk_size": 8} if chunked else {})),
+        counters)
+
+    serving = serving_config()
+    serving.keypoint_feature_detector = "ORB"
+    _, _, serve_launches = run_serving(
+        serving_streams(lefts, rights, gt), rig, counters, dev, serving,
+        "ORB", gate_ate=False)
+    return {"fast_slice": launches, "fast_serving": serve_launches}, missed
 
 
 def main() -> int:
@@ -2528,11 +2930,28 @@ def main() -> int:
         kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_err)
         missed += failed
     # 14. the command line on the circuit written as a KITTI sequence
-    cli_paths, a_err, b_err, failed = cli_phase(scenes_loop["circuit"],
-                                                counters, dev)
-    by_path.update(cli_paths)
-    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], a_err)
-    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_err)
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="svslam_kitti_")
+    try:
+        cli_paths, a_err, b_err, failed, outputs = cli_phase(
+            scenes_loop["circuit"], counters, dev, tmp)
+        by_path.update(cli_paths)
+        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], a_err)
+        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_err)
+        missed += failed
+        # 16. the dense tool's command line on phase 14's fused run
+        missed += dense_phase(outputs, tmp, dev)
+        # 17. MobileNet-V2: the fused loop path and the classic CLI
+        mnv2_paths, failed = mobilenet_phase(scenes_loop["circuit"], outputs,
+                                             tmp, counters, dev)
+        by_path.update(mnv2_paths)
+        missed += failed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # 18. FAST corners (the ORB option) on the slice
+    fast_paths, failed = fast_phase(scenes_loop["circuit"], counters, dev)
+    by_path.update(fast_paths)
     missed += failed
     # 15. the chunked modes: CUDA-graph replays of the fused step's
     # branches and PGO's graph
@@ -2553,11 +2972,13 @@ def main() -> int:
         profile_run("loop", vo_l.run, T - 1)
 
     # launches: kernels A and B on the loop path over both scenes (the
-    # main path) and on the command line's classic and fused runs, kernel
+    # main path), on the command line's classic and fused runs and on this
+    # slice's MobileNet and FAST paths, kernel
     # C and the gather on the serving run with the per-level LK, kernel D
     # on the sharded BA; every path's counts beside them
     ab_paths = ("loop_circuit", "loop_circuit_long", "cli_classic",
-                "cli_fused")
+                "cli_fused", "mnv2_loop", "mnv2_cli_classic", "fast_slice",
+                "fast_serving")
     main_path = {"lk_pyramid": ab_paths, "pose_lm": ab_paths,
                  "lk_iterate": ("serving_pallas",),
                  "gather_windows": ("serving_pallas",),

@@ -3,7 +3,7 @@
 Turns the JAX package's values, given as array-likes (numpy arrays, or any
 object `np.asarray` accepts), into the port's tensors: `Camera`, `MapState`,
 `FrontendState`, `ArchiveState`, `LoopState`, `PoseGraph`, `SlamConfig`
-fields and PlaceNet's weights; `tensor` also reads checkpoint arrays. Both
+fields, and PlaceNet's and MobileNet-V2's weights; `tensor` also reads checkpoint arrays. Both
 packages keep the same fixed capacities and slot order, so a converted
 state is the same state, and tests can start both packages from one
 mid-sequence state. A
@@ -95,6 +95,21 @@ def place_net_params(src, device="cpu") -> dict:
                       for w, b in convs],
             "proj": {"w": tensor(np.asarray(proj[0], np.float32), device),
                      "b": tensor(np.asarray(proj[1], np.float32), device)}}
+
+
+def mobilenet_params(src, device="cpu") -> dict:
+    """MobileNet-V2's parameter tree for `models.mobilenet_v2` from the
+    reference's: every convolution weight from HWIO to OIHW (a depthwise
+    (3, 3, 1, C) to (C, 1, 3, 3)), batch norm as it is."""
+    def conv(p):
+        return {"w": tensor(np.asarray(p["w"], np.float32).transpose(
+                    3, 2, 0, 1), device),
+                "bn": {k: tensor(np.asarray(v, np.float32), device)
+                       for k, v in p["bn"].items()}}
+    return {"stem": conv(src["stem"]),
+            "blocks": [{k: conv(v) for k, v in b.items()}
+                       for b in src["blocks"]],
+            "head": conv(src["head"])}
 
 
 def slam_config(src) -> SlamConfig:

@@ -1,5 +1,5 @@
 """Image primitives: pyramids, gradients, Gaussian blur, linear resize,
-bilinear patch sampling (counterpart of `ops/image.py`).
+bilinear patch and point sampling (counterpart of `ops/image.py`).
 
 Filters are the reference's zero-padded separable shift-adds, term by term in
 the same order, rather than `F.conv2d`: cuDNN would run a float32 convolution
@@ -198,3 +198,14 @@ def sample_patches_multi(imgs: torch.Tensor, centers: torch.Tensor,
         _bilinear_combine(gather_patches(stacks[c], g, y0, x0, size), frac)
         for c in range(C)])
     return patches, valid
+
+
+def bilinear_sample(img: torch.Tensor, pts: torch.Tensor):
+    """Bilinear samples of an (H, W) image at (N, 2) float (x, y) points.
+    Returns (values (N,), valid (N,)): valid inside [0, W - 2] x
+    [0, H - 2]."""
+    patches, _ = sample_patches(img, pts, 1)
+    H, W = img.shape
+    valid = ((pts[:, 0] >= 0.0) & (pts[:, 1] >= 0.0)
+             & (pts[:, 0] <= W - 2.0) & (pts[:, 1] <= H - 2.0))
+    return patches[:, 0, 0], valid

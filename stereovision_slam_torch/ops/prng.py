@@ -9,9 +9,14 @@ encrypts the counter pair (hi, lo) of its flat index i with 20 rounds
 third key word k0 ^ k1 ^ 0x1BD11BDA) and takes x0 ^ x1 as its 32 random
 bits. A float32 in [1, 2) is built from the top 23 bits, 1 is subtracted,
 and the result is scaled into [minval, maxval) and clamped below at minval.
-PyTorch has no unsigned 32-bit arithmetic, so the words live in int64
-tensors masked to 32 bits. The key may be a 0-d integer tensor on the
-device (a captured CUDA graph then reads it at every replay) or an int.
+`split(key, n)` gives key i as the word pair (x0, x1) of counter i, and
+`normal` is sqrt(2) erfinv(u) of a uniform u on (-1, 1), as `jax.random`'s
+(erfinv is torch's, not XLA's polynomial, so normal draws agree to a few
+ulps, not bit for bit). PyTorch has no unsigned 32-bit arithmetic, so the
+words live in int64 tensors masked to 32 bits. A key is a seed (an int, or
+a 0-d integer tensor on the device, which a captured CUDA graph then reads
+at every replay), standing for `PRNGKey(seed)` = (0, seed), or a word pair
+(k0, k1) of ints.
 """
 
 from __future__ import annotations
@@ -44,27 +49,51 @@ def threefry2x32(key: tuple, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def random_bits(key_int, shape, device="cpu") -> torch.Tensor:
-    """The 32 random bits of each element of `jax.random.bits(
-    PRNGKey(key_int), shape)`, as int64; `key_int` an int or a 0-d integer
-    tensor on `device`."""
-    n = int(np.prod(shape))
+def _key(key) -> tuple:
+    """The word pair of a key: (0, seed) for a seed, else the pair."""
+    if torch.is_tensor(key) and key.dim() == 0:
+        return (0, key.to(torch.int64) & _MASK)
+    if np.ndim(key) == 0:
+        return (0, int(key) & _MASK)
+    return (int(key[0]) & _MASK, int(key[1]) & _MASK)
+
+
+def _counter_words(key, n: int, device):
+    """Threefry of the counters 0 .. n-1 under `key`: (x0, x1)."""
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    hi, lo = idx >> 32, idx & _MASK
-    if torch.is_tensor(key_int):
-        key = (0, key_int.to(torch.int64) & _MASK)
-    else:
-        key = (0, int(key_int) & _MASK)
-    x0, x1 = threefry2x32(key, hi, lo)
+    return threefry2x32(_key(key), idx >> 32, idx & _MASK)
+
+
+def split(key, num: int = 2) -> list[tuple[int, int]]:
+    """`jax.random.split(key, num)` (the partitionable Threefry): key i is
+    the word pair of counter i."""
+    x0, x1 = _counter_words(key, num, "cpu")
+    return list(zip(x0.tolist(), x1.tolist()))
+
+
+def random_bits(key_int, shape, device="cpu") -> torch.Tensor:
+    """The 32 random bits of each element of `jax.random.bits(key,
+    shape)`, as int64; `key_int` a key (see the module docstring)."""
+    x0, x1 = _counter_words(key_int, int(np.prod(shape)), device)
     return (x0 ^ x1).reshape(tuple(shape))
 
 
 def uniform(key_int, shape, minval: float = 0.0, maxval: float = 1.0,
             device="cpu") -> torch.Tensor:
     """float32 draws equal bit for bit to `jax.random.uniform(
-    jax.random.PRNGKey(key_int), shape, jnp.float32, minval, maxval)`."""
+    jax.random.PRNGKey(key_int), shape, jnp.float32, minval, maxval)` (or
+    under the key pair `key_int`)."""
     bits = random_bits(key_int, shape, device)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.full((), minval, dtype=torch.float32, device=device)
     hi = torch.full((), maxval, dtype=torch.float32, device=device)
     return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def normal(key, shape, device="cpu") -> torch.Tensor:
+    """float32 draws of `jax.random.normal(key, shape)`: sqrt(2) erfinv(u)
+    of u uniform on (nextafter(-1, 0), 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0, device=device)
+    return torch.full((), float(np.float32(np.sqrt(2.0))), dtype=torch.float32,
+                      device=device) * torch.erfinv(u)

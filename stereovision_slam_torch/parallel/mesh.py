@@ -84,3 +84,14 @@ def make_ba_mesh(n_devices: int | None = None, dp: int | None = None,
     if dp * mp != n:
         raise ValueError(f"dp ({dp}) * mp ({mp}) != ranks ({n})")
     return Mesh(dp, mp, dev)
+
+
+def make_local_mesh(device: str | torch.device = "cuda") -> Mesh:
+    """One rank per local device of `device`'s type (the reference's
+    `jax.make_mesh((jax.device_count(),), ...)`, as the dense tool's
+    `--mesh` takes it); several cards raise, as `make_ba_mesh` does."""
+    dev = _canonical(device)
+    if dev.type == "cuda":
+        return make_ba_mesh(devices=[torch.device("cuda", i) for i in
+                                     range(torch.cuda.device_count())])
+    return make_ba_mesh(devices=[dev])

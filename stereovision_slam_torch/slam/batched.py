@@ -79,7 +79,7 @@ def batched_staggered_step(fs, ms, arc, kf_count, left_img, right_img,
                            backend_on=True, ba_iters=10, ba_max_active=None,
                            m=1, lk_iters=30, pose_rounds=4, pose_iters=10,
                            fold_tracks=True, pallas_mode="lanes",
-                           camp=None):
+                           camp=None, detector="gftt"):
     """Advance B streams one frame, with the keyframe branch on the m
     streams [phase * m % B, + m).
 
@@ -119,7 +119,7 @@ def batched_staggered_step(fs, ms, arc, kf_count, left_img, right_img,
             cam_right, frame_id[b], kf_id, num_features=num_features,
             min_distance=min_distance, quality_level=quality_level,
             max_depth=max_depth, num_active=num_active, detect_all=False,
-            lk_iters=lk_iters)
+            lk_iters=lk_iters, detector=detector)
         if backend_on:
             ms2, _ = optimize_window(ms2, cam_left, cam_right,
                                      chi2_th=chi2_th, iters=ba_iters,
@@ -195,8 +195,6 @@ class BatchedFusedVisualOdometry:
         if self.kf_stagger > 1 and self.B % self.kf_stagger != 0:
             raise ValueError(f"B={self.B} must be a multiple of kf_stagger="
                              f"{self.kf_stagger}")
-        if cfg.keypoint_feature_detector.lower() != "gftt":
-            raise ValueError("only the GFTT detector is ported")
         self.device = resolve_device(device)
         self._step_idx = 0
         self._steps: list[_Step] = []
@@ -229,7 +227,8 @@ class BatchedFusedVisualOdometry:
                 min_distance=cfg.gftt_min_distance,
                 quality_level=cfg.gftt_quality_level,
                 max_depth=cfg.max_triangulation_depth,
-                num_active=cfg.num_active_keyframes, detect_all=True)
+                num_active=cfg.num_active_keyframes, detect_all=True,
+                detector=cfg.keypoint_feature_detector.lower())
             fs_list.append(fs)
             ms_list.append(ms)
             fids.append(frame.frame_id)
@@ -251,7 +250,8 @@ class BatchedFusedVisualOdometry:
                   bad_threshold=cfg.num_features_tracking_bad,
                   chi2_th=cfg.chi2_th, backend_on=bool(cfg.backend_on),
                   ba_iters=cfg.ba_lm_iters,
-                  ba_max_active=cfg.ba_max_active_landmarks or None)
+                  ba_max_active=cfg.ba_max_active_landmarks or None,
+                  detector=cfg.keypoint_feature_detector.lower())
         if self.kf_stagger > 1:
             kw.update(m=self.B // self.kf_stagger, lk_iters=cfg.lk_max_iters,
                       pose_rounds=cfg.pose_rounds,

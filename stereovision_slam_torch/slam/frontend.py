@@ -10,8 +10,9 @@ single-stream step: in the default topology its B = 1 case, otherwise the
 reference's sequential topology (`anchored=False`, `fused_tracks=False` or
 mono: one LK call, kernel A, per solve; the mono pose solve is the plain
 `pose_solver` path, as the reference solves it on every backend). Every
-solved pose is projected back onto SO(3). `keyframe_step` is the GFTT
-keyframe path: detection away from tracked features, left->right LK,
+solved pose is projected back onto SO(3). `keyframe_step` is the keyframe
+path: GFTT (or FAST, the ORB option) detection away from tracked features,
+left->right LK,
 triangulation, landmark creation and keyframe insertion. The reference's
 static-size `nonzero` and dropped scatters become explicit masks
 (`map_state.nonzero_static`, `map_state.scatter_drop`).
@@ -26,7 +27,7 @@ import torch
 
 from stereovision_slam_torch.geometry import jacobians, se3, triangulation
 from stereovision_slam_torch.geometry.camera import Camera, pixel2camera
-from stereovision_slam_torch.ops import gftt, lk
+from stereovision_slam_torch.ops import fast, gftt, lk
 from stereovision_slam_torch.ops.pose_kernel import (camera_block,
                                                       solve_pose_multi_lr)
 from stereovision_slam_torch.slam import map_state as mapmod
@@ -267,8 +268,10 @@ def keyframe_step(fs: FrontendState, m: mapmod.MapState, right_pyr,
                   num_features: int = 150, min_distance: int = 20,
                   quality_level: float = 0.01, max_depth: float = 300.0,
                   num_active: int = 10, detect_all: bool = False,
-                  lk_iters: int = 30):
-    """Make the current frame a keyframe (GFTT detector).
+                  lk_iters: int = 30, detector: str = "gftt"):
+    """Make the current frame a keyframe: detect corners away from the
+    tracked features (GFTT, or FAST for `detector` "orb" / "fast", the
+    config's ORB option), track them into the right image, triangulate.
 
     `detect_all=True` is the stereo-initialization path (no masking).
     `frame_id` and `kf_id` are ints or 0-d integer tensors (the chunked
@@ -288,9 +291,13 @@ def keyframe_step(fs: FrontendState, m: mapmod.MapState, right_pyr,
 
     mask = None if detect_all else gftt.occupancy_mask(
         (H, W), fs.feat_uv, fs.feat_valid, min_distance // 2)
-    new_pts, new_valid, _ = gftt.detect(
-        left_img, max_corners=F, quality_level=quality_level,
-        min_distance=min_distance, mask=mask)
+    if detector.lower() in ("orb", "fast"):
+        new_pts, new_valid, _ = fast.detect(
+            left_img, max_corners=F, min_distance=min_distance, mask=mask)
+    else:
+        new_pts, new_valid, _ = gftt.detect(
+            left_img, max_corners=F, quality_level=quality_level,
+            min_distance=min_distance, mask=mask)
     new_valid = new_valid & (torch.arange(F, device=dev) < num_features)
 
     # merge detections into free feature slots

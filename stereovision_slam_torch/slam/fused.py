@@ -186,7 +186,8 @@ def fresh_state(fs: fe.FrontendState, pyr, T_cur, T_rel) -> fe.FrontendState:
 
 def _kf_kw(s: dict) -> dict:
     return {k: s[k] for k in ("num_features", "min_distance", "quality_level",
-                              "max_depth", "num_active", "lk_iters")}
+                              "max_depth", "num_active", "lk_iters",
+                              "detector")}
 
 
 # The branches of `fused_step`. Each reads and writes tensors only; the ids
@@ -287,12 +288,13 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
                ba_max_active: int | None = 1024,
                lk_iters: int = 30, pose_rounds: int = 4, pose_iters: int = 10,
                ba_every: int = 1, lost_recovery: bool = True, camp=None,
-               kf_hook=None, hook_state=None):
+               detector: str = "gftt", kf_hook=None, hook_state=None):
     """One SLAM frame. `kf_count` < 0 marks an uninitialized map (the frame
     then runs stereo initialization). `lost_recovery=False` leaves a LOST
     frame on the tracking branch (no keyframe) instead of re-initializing,
     as `batched.batched_fused_step` asks. `camp`: the rig's
     `pose_kernel.camera_block`, as `frontend.track_step` takes it.
+    `detector`: "gftt", or "orb" / "fast" for FAST corners.
 
     `kf_hook(hook_state, fs, ms, pyr, frame_id, kf_id, arc) -> (fs, ms,
     hook_state)` runs on the keyframe branch only (not on the stereo
@@ -309,7 +311,7 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
              num_active=num_active, lk_iters=lk_iters, chi2_th=chi2_th,
              ba_iters=ba_iters, ba_max_active=ba_max_active,
              num_features_init=num_features_init, pose_rounds=pose_rounds,
-             pose_iters=pose_iters)
+             pose_iters=pose_iters, detector=detector)
     pyr, right_pyr = frame_pyramids(left_img, right_img, num_levels)
     Tmax = arc.kf_pose.shape[0]
     dev = fs.T_cur.device
@@ -391,8 +393,6 @@ class FusedVisualOdometry:
 
     def _statics(self) -> dict:
         cfg = self.cfg
-        if cfg.keypoint_feature_detector.lower() != "gftt":
-            raise ValueError("only the GFTT detector is ported")
         return dict(
             num_levels=cfg.lk_num_levels, num_features=cfg.num_features,
             min_distance=cfg.gftt_min_distance,
@@ -406,7 +406,8 @@ class FusedVisualOdometry:
             ba_max_active=cfg.ba_max_active_landmarks or None,
             lk_iters=cfg.lk_max_iters, pose_rounds=cfg.pose_rounds,
             pose_iters=cfg.pose_iters_per_round,
-            ba_every=cfg.ba_every_kth_keyframe)
+            ba_every=cfg.ba_every_kth_keyframe,
+            detector=cfg.keypoint_feature_detector.lower())
 
     def step(self) -> bool:
         frame = self.dataset.next_frame()

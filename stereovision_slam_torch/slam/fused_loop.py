@@ -93,15 +93,14 @@ def empty_loop_state(Tmax: int, F: int, max_loop_edges: int = 512,
 
 
 def embed(place_params, left_img: torch.Tensor) -> torch.Tensor:
-    """The keyframe's place embedding: PlaceNet for its parameters ("convs"),
-    the thumbnail without parameters. MobileNet-V2 parameters ("stem") are
-    refused: its forward is not ported."""
+    """The keyframe's place embedding: the parameters' structure picks the
+    embedder, MobileNet-V2 ("stem") or PlaceNet ("convs"); the thumbnail
+    without parameters."""
     if place_params is None:
         return mnv2.embed_image_thumbnail(left_img)
     if "convs" in place_params:
         return place_net.embed_image(place_params, left_img)
-    raise NotImplementedError("the MobileNet-V2 embedder is not ported; "
-                              "pass PlaceNet parameters or none")
+    return mnv2.embed_image(place_params, left_img)
 
 
 def loop_information(cam_left, T_corr, pts3d, uv, inliers, loop_rel):

@@ -25,6 +25,7 @@ import torch
 
 from stereovision_slam_torch.convert import tensor
 from stereovision_slam_torch.geometry import se3
+from stereovision_slam_torch.models import mobilenet_v2 as mnv2
 from stereovision_slam_torch.models import place_net
 from stereovision_slam_torch.ops import descriptors, matching, prng
 from stereovision_slam_torch.slam import map_state as mapmod
@@ -62,9 +63,9 @@ class LoopEdge:
 def resolve_embedder(embedder: str, mnv2_weights_path: str | None, device):
     """(name, parameters) of the place embedder. 'auto' takes MobileNet-V2
     when its weights file exists, else PlaceNet when its shipped weights
-    exist, else the weight-free thumbnail, as the reference does. MobileNet
-    raises: its forward is not ported yet (ROADMAP.md queue 1, item 7), and
-    no other embedder is put in its place."""
+    exist, else the weight-free thumbnail, as the reference does. An
+    explicit 'mobilenet' without a weights file is the seeded random
+    network (`mobilenet_v2.get_params`)."""
     if embedder == "auto":
         have_weights = bool(mnv2_weights_path) and os.path.exists(
             mnv2_weights_path)
@@ -72,10 +73,7 @@ def resolve_embedder(embedder: str, mnv2_weights_path: str | None, device):
                     "placenet" if os.path.exists(place_net.WEIGHTS_PATH)
                     else "thumbnail")
     if embedder == "mobilenet":
-        raise NotImplementedError(
-            f"the MobileNet-V2 embedder ({mnv2_weights_path}) is not ported "
-            "yet (ROADMAP.md queue 1, item 7); move the weights file away to "
-            "use PlaceNet, or ask for embedder='placenet'")
+        return embedder, mnv2.get_params(mnv2_weights_path, device=device)
     if embedder == "placenet":
         params = place_net.get_params(device=device)
         if params is None:
@@ -129,8 +127,9 @@ def _rel(pose: np.ndarray, prev: np.ndarray) -> np.ndarray:
 class LoopClosure:
     """Host orchestrator of the loop-closure pipeline.
 
-    embedder: 'placenet' (the shipped weights), 'thumbnail' (weight-free),
-    'mobilenet' (not ported: raises) or 'auto' (see `resolve_embedder`)."""
+    embedder: 'mobilenet' (MobileNet-V2: the weights file, else the seeded
+    network), 'placenet' (the shipped weights), 'thumbnail' (weight-free)
+    or 'auto' (see `resolve_embedder`)."""
 
     def __init__(self, cfg, cam_left, mnv2_weights_path: str | None = None,
                  embedder: str = "auto"):

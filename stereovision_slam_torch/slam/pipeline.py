@@ -72,8 +72,6 @@ class VisualOdometry:
 
     def initialize(self) -> None:
         cfg = self.cfg
-        if cfg.keypoint_feature_detector.lower() != "gftt":
-            raise ValueError("only the GFTT detector is ported")
         self.dataset.initialize()
         dev = self.device
         self.cam_left = self.dataset.get_camera(
@@ -125,7 +123,8 @@ class VisualOdometry:
                     min_distance=cfg.gftt_min_distance,
                     quality_level=cfg.gftt_quality_level,
                     max_depth=cfg.max_triangulation_depth,
-                    num_active=cfg.num_active_keyframes)
+                    num_active=cfg.num_active_keyframes,
+                    detector=cfg.keypoint_feature_detector.lower())
 
     def _add_frame(self, frame) -> None:
         cfg = self.cfg

@@ -546,3 +546,84 @@ def test_graph_runner_counts_launches_per_replay(dev):
     runner.run("lk", fn)
     want, _, _ = lk_lanes.lk_pyramid(prev, cur, pts, pts, mask)
     assert torch.equal(uv, want)
+
+
+# ---------------------------------------------------------------------
+# The dense tool, FAST and MobileNet-V2: plain PyTorch on the card, held
+# to the same calls on the CPU.
+
+def _circuit_pair(n: int = 1):
+    lefts, rights, _, _, _ = scenes.circuit(max(n, 2), 188, 620)
+    return lefts[:n], rights[:n]
+
+
+def test_stereo_bm_cuda_matches_cpu(dev):
+    """The cost volume, disparity and validity: elementwise steps and
+    min/argmin, the same bits on the card; a stack of 4 as the images one
+    by one."""
+    from stereovision_slam_torch.ops import stereo_bm
+    lefts, rights = _circuit_pair(3)
+    L, R = torch.from_numpy(lefts), torch.from_numpy(rights)
+    assert torch.equal(stereo_bm.cost_volume(L[0], R[0], 128, 15),
+                       stereo_bm.cost_volume(L[0].to(dev), R[0].to(dev),
+                                             128, 15).cpu())
+    d, v = stereo_bm.compute_disparity(L.to(dev), R.to(dev))
+    for b in range(3):
+        dc, vc = stereo_bm.compute_disparity(L[b], R[b])
+        assert torch.equal(d[b].cpu(), dc) and torch.equal(v[b].cpu(), vc)
+    assert int(v.sum()) > 10000
+
+
+def test_sor_cuda_matches_cpu(dev, monkeypatch):
+    """Mean k-NN distances and the keep-mask: elementwise sums, topk and a
+    pairwise tree, the same bits on the card, for any tiles per launch."""
+    from stereovision_slam_torch.ops import sor
+    rng = np.random.default_rng(0)
+    pts = np.stack([rng.uniform(-10, 10, 20000), rng.uniform(-2, 2, 20000),
+                    rng.uniform(5, 40, 20000)], axis=1).astype(np.float32)
+    cpu, _ = sor.mean_knn_distances(pts, max_ref=8192, device="cpu")
+    for tiles in (1, 4, None):
+        if tiles:
+            monkeypatch.setattr(sor, "LAUNCH_ELEMS", tiles * 1024 * 8192)
+        else:
+            monkeypatch.undo()
+        card, _ = sor.mean_knn_distances(pts, max_ref=8192, device=dev)
+        np.testing.assert_array_equal(card, cpu)
+    np.testing.assert_array_equal(
+        sor.statistical_outlier_removal(pts, max_ref=8192, device=dev),
+        sor.statistical_outlier_removal(pts, max_ref=8192, device="cpu"))
+
+
+def test_fast_cuda_matches_cpu(dev):
+    from stereovision_slam_torch.ops import fast
+    img = torch.from_numpy(_circuit_pair()[0][0])
+    r = fast.fast_response(img.to(dev)).cpu()
+    np.testing.assert_allclose(r.numpy(), fast.fast_response(img).numpy(),
+                               rtol=1e-5, atol=0)
+    p, v, s = fast.detect(img.to(dev), 250, min_distance=20)
+    pc, vc, sc = fast.detect(img, 250, min_distance=20)
+    assert torch.equal(p.cpu(), pc) and torch.equal(v.cpu(), vc)
+    np.testing.assert_allclose(s.cpu().numpy(), sc.numpy(), rtol=1e-5)
+
+
+def test_mobilenet_convolutions_cuda_match_cpu(dev):
+    """MobileNet-V2's depthwise (groups = C) and pointwise convolutions on
+    bf16-rounded operands, cuDNN against the CPU: float32 sums of exact
+    products (TF32 changes nothing on bf16 operands), other orders."""
+    from stereovision_slam_torch.models import mobilenet_v2 as mnv2
+    p = mnv2.init_params(seed=0, device="cpu")
+    x = torch.rand(1, 96, 56, 56) * 6.0
+    for w, stride, groups in ((p["blocks"][1]["depthwise"]["w"], 2, 96),
+                              (p["blocks"][1]["project"]["w"], 1, 1),
+                              (p["blocks"][2]["expand"]["w"], 1, 1)):
+        xi = x[:, :w.shape[1] * groups]
+        a = mnv2._conv(xi, w, stride, groups)
+        b = mnv2._conv(xi.to(dev), w.to(dev), stride, groups).cpu()
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
+                                   atol=1e-4)
+    img = torch.from_numpy(_circuit_pair()[0][0])
+    e = mnv2.embed_image(p, img)
+    ec = mnv2.embed_image(mnv2.init_params(seed=0, device=dev),
+                          img.to(dev)).cpu()
+    cos = float(e @ ec)
+    assert cos > 0.999 and float((e - ec).abs().max()) < 5e-3

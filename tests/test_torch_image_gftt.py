@@ -68,6 +68,22 @@ def test_sample_patches(views):
            atol=1e-4)
 
 
+def test_bilinear_sample(views):
+    """Point samples, in bounds and out (the same 4-term bilinear as the
+    patches, 1e-4 on 0..255), the validity equal."""
+    img = views[0][0]
+    rng = np.random.default_rng(1)
+    pts = np.c_[rng.uniform(-3, 195, 200), rng.uniform(-3, 99, 200)].astype(
+        np.float32)
+    pts[:4] = [[0.0, 0.0], [190.0, 94.0], [190.5, 10.0], [-0.5, 3.0]]
+    vj, okj = jimg.bilinear_sample(jnp.asarray(img), jnp.asarray(pts))
+    vt, okt = timg.bilinear_sample(torch.from_numpy(img.copy()),
+                                   torch.from_numpy(pts))
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    assert okt[:2].all() and not okt[2:4].any()
+    _close(vj, vt, atol=1e-4)
+
+
 def test_gftt_response_mask_and_detect(views):
     img = views[0][0]
     # the response is tr/2 - sqrt(...): a cancellation of terms up to the

@@ -83,10 +83,15 @@ def test_embedder_resolution(tmp_path):
     cfg = convert.slam_config(JConfig())
     assert tlc.LoopClosure(cfg, cam).embedder == "placenet"   # 'auto'
     assert tlc.LoopClosure(cfg, cam, embedder="thumbnail").params is None
+    # a weights file makes 'auto' take MobileNet-V2, as the reference does
+    from stereovision_slam_torch.models import onnx_reader
+    from tests.torch_mnv2_weights import state_dict
     onnx = tmp_path / "mobilenet_v2.onnx"
-    onnx.write_bytes(b"\0")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tlc.LoopClosure(cfg, cam, mnv2_weights_path=str(onnx))
+    onnx_reader.write_onnx_initializers(str(onnx), state_dict(0))
+    lc = tlc.LoopClosure(cfg, cam, mnv2_weights_path=str(onnx))
+    assert lc.embedder == "mobilenet" and "stem" in lc.params
+    assert tlc.LoopClosure(cfg, cam, embedder="mobilenet").embedder == \
+        "mobilenet"
     with pytest.raises(ValueError):
         tlc.LoopClosure(cfg, cam, embedder="sift")
 

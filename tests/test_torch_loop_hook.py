@@ -315,7 +315,8 @@ def test_no_false_positive_on_straight_line():
 
 def test_loop_entry_points_default_to_the_card():
     """The loop path's entry points default to "cuda" and raise without a
-    card unless the caller asks for the CPU; MobileNet parameters raise."""
+    card unless the caller asks for the CPU; the parameters' structure
+    picks the embedder (MobileNet-V2 for "stem")."""
     from stereovision_slam_torch.slam.config import SlamConfig
 
     assert place_net.get_params(device="cpu") is not None
@@ -324,7 +325,10 @@ def test_loop_entry_points_default_to_the_card():
             fused_loop.FusedLoopVisualOdometry(SlamConfig(), None)
         with pytest.raises(RuntimeError):
             place_net.get_params()
-    with pytest.raises(NotImplementedError):
-        fused_loop.embed({"stem": {}}, torch.zeros((48, 160)))
+    from stereovision_slam_torch.models import mobilenet_v2 as mnv2
+    params = mnv2.init_params(device="cpu")
+    img = torch.rand((48, 160)) * 255.0
+    assert torch.equal(fused_loop.embed(params, img),
+                       mnv2.embed_image(params, img))
     assert fused_loop.embed(None, torch.zeros((48, 160))).shape == (
         fused_loop.EMBED_DIM,)

@@ -571,6 +571,25 @@ def test_captured_functions_lint_clean(scene, reference_run):  # noqa: F811
     assert len(found) >= 5, [w for w, _ in found]
 
 
+def test_captured_fast_and_mobilenet_lint_clean(scene):  # noqa: F811
+    """The branches this slice adds to the captured functions, under
+    `capture_lint`: FAST corners in the keyframe graph (the ORB option)
+    and the MobileNet-V2 embedding in the loop hook's insert stage."""
+    from stereovision_slam_torch.models import mobilenet_v2 as mnv2
+    found = []
+    cfg = dataclasses.replace(small_config(), keypoint_feature_detector="ORB",
+                              num_features_needed_for_keyframe=1000)
+    vo = _port(fused_loop.ScanLoopVisualOdometry, scene, cfg, chunk_size=4,
+               place_params=mnv2.init_params(device="cpu"))
+    vo.runner = _LintRunner(found)
+    for _ in range(2):
+        vo.step()
+    assert set(vo.runner.keys) >= {"track", ("keyframe+scan", True),
+                                   "insert"}
+    assert vo._static["detector"] == "orb"
+    assert not found, _lint_report(found)
+
+
 def _pose_graph(vo) -> pose_graph.PoseGraph:
     """The run's keyframes as a pose graph with odometry edges and one loop
     edge (unit information but a blind direction), padded as run_pgo."""

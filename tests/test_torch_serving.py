@@ -235,8 +235,20 @@ def test_staggered_serving_tracks_ground_truth(streams):
 def test_per_frame_batched_matches_single_streams(streams):
     """kf_stagger = 0: the exact per-frame step, stream by stream, gives
     each stream's single-stream run (streams that never go LOST)."""
+    _hold_batched_to_single_streams(streams, small_config())
+
+
+def test_per_frame_batched_orb_matches_single_streams(streams):
+    """The same with FAST corners (`keypoint_feature_detector: ORB`) in
+    the batched keyframe branch."""
+    cfg = small_config()
+    cfg.keypoint_feature_detector = "ORB"
+    _hold_batched_to_single_streams(streams, cfg)
+
+
+def _hold_batched_to_single_streams(streams, ref_cfg):
     T = 8
-    cfg = convert.slam_config(small_config())
+    cfg = convert.slam_config(ref_cfg)
     bvo = tb.BatchedFusedVisualOdometry(
         cfg, _datasets(streams[:2], T), max_total_keyframes=64,
         max_total_landmarks=2048, device="cpu")
