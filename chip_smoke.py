@@ -111,6 +111,21 @@ Phases, in order; any failure exits non-zero:
      with the slice's gates, `ScanVisualOdometry` with FAST in its
      keyframe graph held to the eager run as in 15 (a), and the serving
      cell's four streams with ORB under phase 7's gates but the ATE's.
+ 19. the distributed backend across processes: (a) two processes spawned
+     on the card (gloo on 127.0.0.1, both on cuda:0, 4 of the 8 ranks of
+     the (dp 4, mp 2) mesh each): kernel D across them over a table of
+     peer pointers (CUDA IPC) bit for bit against the one-process launch
+     on phase 11's payload shape, its device time and the barriers around
+     it beside gloo's all_reduce; the sharded BA ("ring", "xla") on phase
+     11's window within phase 11's ring tolerance of the one-process runs,
+     and the sharded PGO on phase 12's graph within its tolerance of the
+     single solve, wall times beside phases 11 and 12; (b) serving phase
+     7's four streams under `serving_config()` over a two-rank mesh on
+     cuda:0 (the per-frame step) with phase 7's per-stream gates, the pose
+     gap to phase 7's run printed; (c) the dense tool with `--mesh` and
+     over a two-rank mesh, bit for bit phase 16's batched cloud. The card's
+     machine has no libpng, so the native frame loader is not run here
+     (the CPU tests hold it).
 
 Phases 2, 3 and 6 also check the sizes the kernels once refused (kernel
 A's windows 21 and 31, kernel B at 2048 points, kernel C's patch 21) and
@@ -123,6 +138,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -197,6 +213,16 @@ SHARD_RING_TOL = (1e-5, 1e-4, 1e-4 / 45)
 SHARD_SINGLE_TOL = (5e-3, 5e-2, 5e-2 / 45)
 SHARD_CPU_TOL = (1e-4, 1e-4, 1e-4)
 PGO_SHARD_TOL = 5e-2     # tests/test_sharded_pgo.py:30-31
+# phase 19 (a): two processes on the one card, each joined by gloo; the
+# payload of kernel D across them (phase 11's shape) from DIST_SEED, timed
+# over DIST_RING_REPS calls; the workers are killed after DIST_TIMEOUT_S.
+# The two-process BA against phase 11's one-process runs: "ring" within
+# SHARD_RING_TOL (its reduction is kernel D's fold, bit for bit; measured
+# equal), "xla" within SHARD_CPU_TOL, phase 11's tolerance for the same
+# float32 sums in another order: its dp sum adds each process's two ranks
+# and then the processes' partials, where one process adds four ranks in
+# turn (measured 5.9e-5 on the poses, 1.4e-3 m at 37 m, H100)
+DIST_PROCS, DIST_SEED, DIST_RING_REPS, DIST_TIMEOUT_S = 2, 19, 20, 300
 # sizes the kernels once refused (kernel A's window above 15, kernel C's
 # patch above 11, kernel B's points above 1024), checked in phases 2, 3, 6
 WIDE_WINS, WIDE_R, WIDE_F = (21, 31), 21, 2048
@@ -403,6 +429,22 @@ def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cross_process_bound(mesh_axes, axis: str, per_proc: int, rows: int):
+    """Kernel D's bound for one process's launch across processes, each
+    owning `per_proc` consecutive ranks of the mesh (process 0's): it reads
+    every rank of each ring that holds one of its ranks, writes its own
+    ranks' outputs, and adds n - 1 terms per element of those rings."""
+    names = [name for name, _ in mesh_axes]
+    sizes = [size for _, size in mesh_axes]
+    a = names.index(axis)
+    n, stride = sizes[a], math.prod(sizes[a + 1:])
+    rings = {(r // (n * stride)) * stride + r % stride
+             for r in range(per_proc)}
+    floats = rows * 128
+    return bound_ms(4 * floats * (len(rings) * n + per_proc),
+                    len(rings) * floats * (n - 1))
 
 
 def check_lk(rendered, dev):
@@ -1825,16 +1867,27 @@ def check_ring(dev):
 @contextlib.contextmanager
 def ring_held(records: list):
     """While active, every launch of kernel D is compared with its plain
-    version on the same payload; `records` gets one dict per launch. The
+    version on the same payload; `records` gets one dict per launch. On a
+    mesh over processes the payloads of every process are all-gathered
+    first and this process's ranks of the plain result compared. The
     path's own result is returned unchanged."""
     import torch
+    import torch.distributed as dist
     from stereovision_slam_torch.parallel import ring_reduce as rr
 
     kernel = rr.ring_all_reduce_flat
 
-    def held(x, axis_name, mesh_axes):
-        k = kernel(x, axis_name, mesh_axes)
-        p = rr.ring_all_reduce_plain(x, axis_name, mesh_axes)
+    def held(x, axis_name, mesh_axes, mesh=None):
+        k = kernel(x, axis_name, mesh_axes, mesh)
+        if mesh is None or mesh.group is None:
+            p = rr.ring_all_reduce_plain(x, axis_name, mesh_axes)
+        else:
+            parts = [torch.empty_like(x, device="cpu")
+                     for _ in range(dist.get_world_size(mesh.group))]
+            dist.all_gather(parts, x.cpu(), group=mesh.group)
+            p = rr.ring_all_reduce_plain(torch.cat(parts).to(x.device),
+                                         axis_name, mesh_axes)
+            p = p[mesh.ranks.start:mesh.ranks.stop]
         records.append(dict(shape=tuple(x.shape), equal=torch.equal(k, p),
                             err=float((k - p).abs().max())))
         return k
@@ -1856,12 +1909,14 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def sharded_ba_phase(vo, counters, dev, err_d: float, profile: bool):
+def sharded_ba_phase(vo, counters, dev, err_d: float, profile: bool,
+                     keep: dict | None = None):
     """Phase 11: the distributed BA on the slice's final window, mesh
     (dp 4, mp 2) on the card, "xla" and "ring" (kernel D, every launch held
     to its plain version), against each other, against the single-card
     BA, and the ring run again on the CPU. Returns (launches, the largest
-    kernel D error)."""
+    kernel D error); `keep` gets the window, the runs, their wall times and
+    the comparison (phase 19)."""
     import numpy as np
     import torch
     from stereovision_slam_torch.geometry import se3
@@ -1971,6 +2026,10 @@ def sharded_ba_phase(vo, counters, dev, err_d: float, profile: bool):
     print(f"sharded BA wall time per call (host clock, ends in "
           f"synchronize): ring {t_r * 1e3:.1f} ms, xla {t_x * 1e3:.1f} ms; "
           f"single-card optimize_window {t_1 * 1e3:.1f} ms")
+    if keep is not None:
+        keep.update(m=m, cl=cl, cr=cr, K=K, F=F, L=L, kw=kw, kr=kr, lr=lr,
+                    kx=kx, lx=lx, ms_ring=1e3 * t_r, ms_xla=1e3 * t_x,
+                    compare=compare)
     if profile:
         profile_run("sharded BA (ring)", lambda: run_r(m, cl, cr), 1,
                     "calls")
@@ -1980,11 +2039,13 @@ def sharded_ba_phase(vo, counters, dev, err_d: float, profile: bool):
     return launches, err
 
 
-def pgo_phase(keyframes, gt, dev, profile: bool) -> None:
+def pgo_phase(keyframes, gt, dev, profile: bool,
+              keep: dict | None = None) -> None:
     """Phase 12: a pose graph over the slice's keyframes (consecutive edges
     from the estimated poses, first -> last from ground truth, one loop
     edge with rank-deficient information), optimized on the card by
-    `optimize_pose_graph` and by `build_sharded_pgo` over 8 ranks."""
+    `optimize_pose_graph` and by `build_sharded_pgo` over 8 ranks. `keep`
+    gets the graph, the single solve, the times and chi2 (phase 19)."""
     import numpy as np
     import torch
     from stereovision_slam_torch.geometry import se3
@@ -2059,6 +2120,9 @@ def pgo_phase(keyframes, gt, dev, profile: bool) -> None:
           f"sharded PGO differs from single PGO: {d}, chi2 {cs} vs {c1}")
     check(e1 < e0 and es < e0, f"PGO did not bring the last keyframe closer "
           f"to ground truth: {e0} -> {e1}, {es}")
+    if keep is not None:
+        keep.update(g=g, out1=out1, c1=c1, s_single_first=t1_cold,
+                    s_sharded_first=ts_cold, chi2=chi2)
     if profile:
         profile_run("PGO", lambda: pg.optimize_pose_graph(g), 1, "solves")
 
@@ -2445,7 +2509,8 @@ def chunked_phase(scenes_loop, slice_scene, counters, dev, params,
 
 
 def dense_phase(paths: dict, tmp: str, dev,
-                save_keyframes: str | None = None) -> list:
+                save_keyframes: str | None = None,
+                keep: dict | None = None) -> list:
     """Phase 16: the dense tool's command line on "cuda" over phase 14's
     fused run (cameras 2 / 3, colour, the reference's defaults): the
     points after each filter, ms per keyframe by stage (`StageTimer`,
@@ -2458,7 +2523,8 @@ def dense_phase(paths: dict, tmp: str, dev,
     against DENSE_ARENA_MIN; (d) the PCD read back, colours from the RGB
     frames. `save_keyframes`: a path to copy the fused run's keyframes.txt
     to (tests/torch_slice9_reference.py reconstructs them in the JAX
-    package). Returns the gates missed."""
+    package). Returns the gates missed; `keep` gets the YAML's path and the
+    batched cloud (phase 19)."""
     import numpy as np
     import torch
     from stereovision_slam_torch.apps import run_dense_reconstruction as app
@@ -2518,6 +2584,9 @@ def dense_phase(paths: dict, tmp: str, dev,
           f"{1e3 * bst['disparity']['total_s'] / n_kf:.2f} ms a keyframe")
     if not same:
         missed.append("phase 16 (b): the batched cloud is not the serial one")
+    if keep is not None:
+        keep.update(yaml=yaml_path, points=batched["points"],
+                    colors=batched["colors"])
 
     # (a) the first keyframe, card against CPU
     fid, T_cw = dr.keyframes[0]
@@ -2762,6 +2831,327 @@ def fast_phase(scene, counters, dev):
     return {"fast_slice": launches, "fast_serving": serve_launches}, missed
 
 
+def dist_worker(rank: int, world: int, port: int, tmp: str) -> None:
+    """Phase 19 (a), process `rank` of `world` (torch.multiprocessing,
+    spawned): joins a gloo group on 127.0.0.1:`port`, on cuda:0, and over
+    the 8-rank (dp 4, mp 2) mesh, 4 ranks a process, runs kernel D across
+    the processes on the payload, the gloo all_reduce beside it, the
+    sharded BA with "ring" and "xla" on phase 11's window and the sharded
+    PGO on phase 12's graph; writes its results to `tmp`."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from stereovision_slam_torch.geometry.camera import Camera
+    from stereovision_slam_torch.parallel import ring_reduce as rr
+    from stereovision_slam_torch.parallel.mesh import (
+        initialize_multihost, make_ba_mesh)
+    from stereovision_slam_torch.parallel.sharded_ba import build_sharded_ba
+    from stereovision_slam_torch.parallel.sharded_pgo import build_sharded_pgo
+    from stereovision_slam_torch.slam.map_state import MapState
+    from stereovision_slam_torch.slam.pose_graph import PoseGraph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", world, rank)
+    inp = torch.load(os.path.join(tmp, "inputs.pt"))
+    mesh = make_ba_mesh(8, dp=4, mp=2, device="cuda")
+    dev = mesh.device
+    out = {"device": str(dev), "ranks": [mesh.ranks.start, mesh.ranks.stop]}
+
+    x = inp["payload"][mesh.ranks.start:mesh.ranks.stop].to(dev)
+    rows, cols = mesh.local_shape
+
+    def ring():
+        return rr.ring_all_reduce_flat(x, "dp", mesh.mesh_axes, mesh)
+
+    def gloo():
+        part = x.view(rows, cols, *x.shape[1:]).sum(0)
+        dist.all_reduce(part)
+        return part
+
+    out["ring"] = ring().cpu()
+    ring()
+    rr.trace = []
+    _, t_ring = timed(lambda: [ring() for _ in range(DIST_RING_REPS)])
+    out["ring_device_ms"] = [t["device_ms"] for t in rr.trace]
+    out["ring_sync_ms"] = [t["sync_ms"] for t in rr.trace]
+    rr.trace = None
+    out["ring_host_ms"] = 1e3 * t_ring / DIST_RING_REPS
+    # the same sums in gloo's order: close to kernel D's, not its bits
+    out["gloo_err"] = float((gloo() - out["ring"].to(dev).view(
+        rows, cols, *x.shape[1:])[0]).abs().max())
+    _, t_gloo = timed(lambda: [gloo() for _ in range(DIST_RING_REPS)])
+    out["gloo_ms"] = 1e3 * t_gloo / DIST_RING_REPS
+
+    m = MapState(*(t.to(dev) for t in inp["m"]))
+    cl, cr = (Camera(*(t.to(dev) for t in inp[c])) for c in ("cl", "cr"))
+    K, F, L = inp["KFL"]
+    for impl in ("ring", "xla"):
+        run = build_sharded_ba(mesh, K, F, L, reduce_impl=impl, **inp["kw"])
+        rr.launch_count = 0
+        records = []
+        with ring_held(records):     # each launch against gather + plain
+            kf, lm = run(m, cl, cr)
+            torch.cuda.synchronize()
+        out[f"launches_{impl}"] = rr.launch_count
+        out[f"held_{impl}"] = [r["equal"] for r in records]
+        out[f"kf_{impl}"], out[f"lm_{impl}"] = kf.cpu(), lm.cpu()
+        _, t = timed(lambda: run(m, cl, cr))
+        out[f"ms_{impl}"] = 1e3 * t
+
+    g = PoseGraph(*(None if t is None else t.to(dev) for t in inp["g"]))
+    pgo = build_sharded_pgo(make_ba_mesh(8, device="cuda"))
+    poses, t = timed(lambda: pgo(g))
+    out["pgo"], out["pgo_s"] = poses.cpu(), t
+    torch.save(out, os.path.join(tmp, f"result_{rank}.pt"))
+    rr.release_peer_buffers()
+    dist.destroy_process_group()
+
+
+def dist_phase(ba: dict, pgo: dict, kernel_d: dict, dev):
+    """Phase 19 (a): two processes on the card (`dist_worker`), both on
+    cuda:0 and joined by gloo. Kernel D across them bit for bit against the
+    one-process launch on phase 11's payload shape; the two-process sharded
+    BA ("ring", "xla") within SHARD_RING_TOL of phase 11's one-process runs,
+    PGO within PGO_SHARD_TOL of phase 12's single solve; the processes'
+    replicated results equal. Returns (kernel D's launches per process on
+    the ring BA run, the cross-process timings, the gates missed)."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from stereovision_slam_torch.parallel import ring_reduce as rr
+
+    t_phase = time.perf_counter()
+    missed = []
+    tmp = tempfile.mkdtemp(prefix="svslam_dist_")
+    rng = np.random.default_rng(DIST_SEED)
+    payload = torch.from_numpy(rng.normal(size=(8, RING_PATH_ROWS, rr.LANES))
+                               .astype(np.float32))
+    g = pgo["g"]
+    torch.save(dict(payload=payload,
+                    m=[t.cpu() for t in ba["m"]],
+                    cl=[t.cpu() for t in ba["cl"]],
+                    cr=[t.cpu() for t in ba["cr"]],
+                    KFL=[ba["K"], ba["F"], ba["L"]], kw=ba["kw"],
+                    g=[None if t is None else t.cpu() for t in g]),
+               os.path.join(tmp, "inputs.pt"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.start_processes(dist_worker, args=(DIST_PROCS, port, tmp),
+                             nprocs=DIST_PROCS, join=False,
+                             start_method="spawn")
+    failure = None
+    deadline = time.perf_counter() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                failure = f"the workers ran past {DIST_TIMEOUT_S} s"
+                break
+    except Exception as e:            # a worker raised or died
+        failure = f"a worker failed: {e}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    t_run = time.perf_counter() - t_phase
+    if failure is not None:
+        shutil.rmtree(tmp, ignore_errors=True)
+        return 0, {}, [f"phase 19 (a): {failure}"]
+    res = [torch.load(os.path.join(tmp, f"result_{i}.pt"))
+           for i in range(DIST_PROCS)]
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    ma = (("dp", 4), ("mp", 2))
+    one = rr.ring_all_reduce_flat(payload.to(dev), "dp", ma).cpu()
+    plain = rr.ring_all_reduce_plain(payload.to(dev), "dp", ma).cpu()
+    two = torch.cat([r["ring"] for r in res])
+    ring_same = torch.equal(two, one) and torch.equal(two, plain)
+    bound, bound_by = cross_process_bound(ma, "dp", 8 // DIST_PROCS,
+                                          RING_PATH_ROWS)
+    dev_ms = [v for r in res for v in r["ring_device_ms"]]
+    sync_ms = [v for r in res for v in r["ring_sync_ms"]]
+    print(f"phase 19 (a): {DIST_PROCS} processes on "
+          f"{', '.join(r['device'] for r in res)}, ranks "
+          f"{[r['ranks'] for r in res]}, gloo on 127.0.0.1, {t_run:.1f} s "
+          f"from spawn to exit; kernel D across the processes on "
+          f"(8, {RING_PATH_ROWS}, 128) along dp bit for bit the one-process "
+          f"launch and the plain version: {ring_same}; device time a launch "
+          f"(CUDA events) median {np.median(dev_ms):.4f} ms, min "
+          f"{min(dev_ms):.4f} ms, bound {bound:.6f} ms ({bound_by}) (one "
+          f"process, phase 10: {kernel_d['device_ms']:.4f} ms warm, "
+          f"{kernel_d['cold_ms']:.4f} ms cold); the synchronizes and "
+          f"barriers around it median {np.median(sync_ms):.3f} ms; a call "
+          f"{np.mean([r['ring_host_ms'] for r in res]):.3f} ms (host clock); "
+          f"gloo all_reduce of the local dp sum "
+          f"{np.mean([r['gloo_ms'] for r in res]):.3f} ms a call (up to "
+          f"{max(r['gloo_err'] for r in res):.2e} from kernel D's sums)")
+    if not ring_same:
+        missed.append("phase 19 (a): kernel D across processes differs from "
+                      f"the one-process launch by "
+                      f"{float((two - one).abs().max())}, from the plain "
+                      f"version by {float((two - plain).abs().max())}")
+    launches = [r["launches_ring"] for r in res]
+    held = [r["held_ring"] for r in res]
+    iters = ba["kw"]["iters"]
+    print(f"phase 19 (a): sharded BA over two processes: kernel D launches "
+          f"per process {launches} (ring), {[r['launches_xla'] for r in res]}"
+          f" (xla), each against the all-gathered payloads' plain version: "
+          f"{sum(map(sum, held))} of {sum(map(len, held))} bit-equal; wall "
+          f"per call ring "
+          f"{np.mean([r['ms_ring'] for r in res]):.1f} ms, xla "
+          f"{np.mean([r['ms_xla'] for r in res]):.1f} ms (one process, phase "
+          f"11: ring {ba['ms_ring']:.1f} ms, xla {ba['ms_xla']:.1f} ms); "
+          f"against phase 11's runs:")
+    if launches != [iters] * DIST_PROCS:
+        missed.append(f"phase 19 (a): kernel D launched {launches} times, "
+                      f"not {iters} in each process")
+    if not all(all(h) and len(h) >= n for h, n in zip(held, launches)):
+        missed.append("phase 19 (a): a kernel D launch of the two-process "
+                      "BA differs from the plain version of the gathered "
+                      "payloads")
+    for impl, (k1, l1), tol in (
+            ("ring", (ba["kr"], ba["lr"]), SHARD_RING_TOL),
+            ("xla", (ba["kx"], ba["lx"]), SHARD_CPU_TOL)):
+        ok, msg = ba["compare"](f"two processes vs one, {impl}",
+                                res[0][f"kf_{impl}"].to(dev),
+                                res[0][f"lm_{impl}"].to(dev), k1, l1, tol)
+        if not ok:
+            missed.append(f"phase 19 (a): {msg}")
+    for key in ("kf_ring", "lm_ring", "kf_xla", "lm_xla", "pgo"):
+        if not torch.equal(res[0][key], res[1][key]):
+            missed.append(f"phase 19 (a): the processes' {key} differ")
+    d = float((res[0]["pgo"].to(dev) - pgo["out1"]).abs().max())
+    c2 = pgo["chi2"](res[0]["pgo"].to(dev))
+    print(f"phase 19 (a): sharded PGO over two processes {d:.3e} from the "
+          f"single solve (tolerance {PGO_SHARD_TOL}), chi2 {c2:.4e} (single "
+          f"{pgo['c1']:.4e}); {res[0]['pgo_s']:.2f} s a solve, the first "
+          f"(phase 12, first solves: single {pgo['s_single_first']:.2f} s, "
+          f"one-process sharded {pgo['s_sharded_first']:.2f} s)")
+    if not (d <= PGO_SHARD_TOL and c2 <= pgo["c1"] * 1.05 + 1e-8):
+        missed.append(f"phase 19 (a): two-process PGO {d}, chi2 {c2}")
+    timing = dict(device_ms=float(np.median(dev_ms)),
+                  bound_ms=bound, bound_by=bound_by,
+                  sync_ms=float(np.median(sync_ms)),
+                  host_ms=float(np.mean([r["ring_host_ms"] for r in res])),
+                  library_ms=float(np.mean([r["gloo_ms"] for r in res])),
+                  processes=DIST_PROCS)
+    return sum(launches), timing, missed
+
+
+def serving_mesh_phase(streams, rig, counters, dev):
+    """Phase 19 (b): phase 7's four streams under `serving_config()` with
+    `mesh=make_ba_mesh(devices=["cuda:0"] * 2, dp=2, mp=1)`: two streams a
+    rank, the per-frame step (a mesh takes no kf_stagger), each rank's
+    sub-batch stepped in turn; phase 7's per-stream gates and the launch
+    counts. Then the same streams unsharded (mesh=None, the per-frame
+    step): streams never interact, so the mesh run's outputs and keyframe
+    trajectories must equal it bit for bit. Returns (launches, the gates
+    missed)."""
+    import numpy as np
+    from stereovision_slam_torch.io.dataset import ArraySequenceDataset
+    from stereovision_slam_torch.parallel.mesh import make_ba_mesh
+    from stereovision_slam_torch.slam.batched import BatchedFusedVisualOdometry
+
+    def server(mesh):
+        return BatchedFusedVisualOdometry(
+            serving_config(), [ArraySequenceDataset(l, r, list(rig))
+                               for l, r, _ in streams],
+            max_total_keyframes=512, max_total_landmarks=1 << 16, mesh=mesh,
+            device=dev)
+
+    missed = []
+    vo = server(make_ba_mesh(devices=["cuda:0"] * 2, dp=2, mp=1))
+    for mod in counters.values():
+        mod.launch_count = 0
+    vo.initialize()
+    _, dt = timed(vo.run)
+    launches = {k: m.launch_count for k, m in counters.items()}
+    steps = vo._step_idx
+    outputs = vo.outputs
+    inserted = sum(int(o.kf_inserted) for out in outputs for _, o in out)
+    print(f"phase 19 (b): serving over the mesh (2 ranks on cuda:0, "
+          f"{len(vo.shards[0].streams)} streams each, per-frame step): "
+          f"{SERVE_B} streams x {steps} frames in {dt:.3f} s = "
+          f"{SERVE_B * steps / dt:.2f} frames/s aggregate, {inserted} "
+          f"keyframe steps, launches {launches}")
+    plain = server(None)
+    plain.initialize()
+    _, dt_plain = timed(plain.run)
+    ref = plain.outputs
+    path = 0.35 * SERVE_T
+    for b, (traj, traj_ref, out) in enumerate(zip(
+            vo.trajectories(), plain.trajectories(), outputs)):
+        n_in = np.array([int(o.n_inliers) for _, o in out])
+        ate = stream_ate(traj, streams[b][2])
+        gap = np.array([np.abs(o.pose - r.pose).max()
+                        for (_, o), (_, r) in zip(out, ref[b])])
+        same = (len(out) == len(ref[b]) and all(
+            f == g and o.n_inliers == r.n_inliers and o.n_tracked ==
+            r.n_tracked and o.kf_inserted == r.kf_inserted and o.kf_count ==
+            r.kf_count and np.array_equal(o.pose, r.pose)
+            for (f, o), (g, r) in zip(out, ref[b])) and set(traj) ==
+            set(traj_ref) and all(np.array_equal(traj[f], traj_ref[f])
+                                  for f in traj))
+        first = int(np.argmax(gap > 0)) + 1 if np.any(gap > 0) else None
+        print(f"  stream {b}: {len(traj)} keyframes, keyframe ATE {ate:.4f} m"
+              f" ({100 * ate / path:.3f}% of {path:.1f} m), n_inliers "
+              f"{n_in.min()}-{n_in.max()}; against the unsharded per-frame "
+              f"run ({dt_plain:.3f} s): bit for bit {same}, pose gap up to "
+              f"{gap.max():.3e}, first at frame {first}")
+        if not (len(traj) >= 2 and ate < SERVE_ATE_PER_M * path
+                and len(out) == steps and bool(np.all(n_in > 10))):
+            missed.append(f"phase 19 (b): stream {b}: {len(traj)} keyframes,"
+                          f" ATE {ate:.3f} m, n_inliers {n_in.min()}")
+        if not same:
+            missed.append(f"phase 19 (b): stream {b} over the mesh is not "
+                          f"the unsharded run (pose gap {gap.max():.3e})")
+    # per stream and step: two LK calls and one pose solve; one LK call per
+    # stream's stereo initialization and per keyframe step
+    want_a = SERVE_B * (2 * steps + 1) + inserted
+    want_b = SERVE_B * steps
+    if launches["lk_pyramid"] != want_a or launches["pose_lm"] != want_b:
+        missed.append(f"phase 19 (b): kernels A, B launched "
+                      f"{launches['lk_pyramid']}, {launches['pose_lm']} "
+                      f"times, not {want_a}, {want_b}")
+    return launches, missed
+
+
+def dense_mesh_phase(dense: dict, tmp: str, dev) -> list:
+    """Phase 19 (c): the dense tool with `--mesh` (every local card, one
+    keyframe a rank and stack), then `dense_reconstruct` over a two-rank
+    mesh on cuda:0 (two keyframes a rank and stack), each equal to phase
+    16's batched cloud bit for bit. Returns the gates missed."""
+    import numpy as np
+    from stereovision_slam_torch.apps import run_dense_reconstruction as app
+    from stereovision_slam_torch.dense.reconstruction import (
+        DenseReconstruction)
+    from stereovision_slam_torch.parallel.mesh import make_ba_mesh
+
+    missed = []
+    cli, dt_cli = timed(lambda: app.run(app.parse_args(
+        [dense["yaml"], "--device", str(dev), "--mesh"])))
+    dr = DenseReconstruction(app.load_config(dense["yaml"]), device=dev)
+    dr.initialize()
+    (pts, cols), dt = timed(lambda: dr.dense_reconstruct(
+        output_path=os.path.join(tmp, "dense_mesh2.pcd"),
+        mesh=make_ba_mesh(devices=["cuda:0"] * 2), per_device_batch=2))
+    for name, p, c, t in (("--mesh", cli["points"], cli["colors"], dt_cli),
+                          ("2 ranks x 2", pts, cols, dt)):
+        same = (np.array_equal(p, dense["points"])
+                and np.array_equal(c, dense["colors"]))
+        print(f"phase 19 (c): the dense tool, {name}: {len(p)} points "
+              f"against phase 16's batched {len(dense['points'])}, bit for "
+              f"bit: {same}; {t:.2f} s")
+        if not same:
+            missed.append(f"phase 19 (c): {name} is not phase 16's cloud")
+    return missed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", type=int, default=0,
@@ -2907,9 +3297,11 @@ def main() -> int:
 
     # 10-12. kernel D, the sharded BA on the slice's final window, PGO
     kernels.append(check_ring(dev))
+    ba_keep, pgo_keep, dense_keep = {}, {}, {}
     by_path["sharded_ba"], kernels[-1]["max_abs_err"] = sharded_ba_phase(
-        vo, counters, dev, kernels[-1]["max_abs_err"], bool(args.profile))
-    pgo_phase(keyframes, gt, dev, bool(args.profile))
+        vo, counters, dev, kernels[-1]["max_abs_err"], bool(args.profile),
+        ba_keep)
+    pgo_phase(keyframes, gt, dev, bool(args.profile), pgo_keep)
 
     # 13. the bench's main path: loop closure on the circuit and on the
     # 480-frame multi-lap circuit, every kernel A and B launch held
@@ -2941,25 +3333,36 @@ def main() -> int:
         kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_err)
         missed += failed
         # 16. the dense tool's command line on phase 14's fused run
-        missed += dense_phase(outputs, tmp, dev)
+        missed += dense_phase(outputs, tmp, dev, keep=dense_keep)
         # 17. MobileNet-V2: the fused loop path and the classic CLI
         mnv2_paths, failed = mobilenet_phase(scenes_loop["circuit"], outputs,
                                              tmp, counters, dev)
         by_path.update(mnv2_paths)
         missed += failed
+        # 18. FAST corners (the ORB option) on the slice
+        fast_paths, failed = fast_phase(scenes_loop["circuit"], counters, dev)
+        by_path.update(fast_paths)
+        missed += failed
+        # 15. the chunked modes: CUDA-graph replays of the fused step's
+        # branches and PGO's graph
+        chunked_paths, failed = chunked_phase(
+            scenes_loop, (lefts, rights, gt, dist, rig), counters, dev, params,
+            eager_loop, slice_fps, args.profile)
+        by_path.update(chunked_paths)
+        missed += failed
+        # 19. the distributed backend across two processes on the card,
+        # serving over a mesh, the dense tool over mesh ranks
+        by_path["sharded_ba_2proc"] = dict.fromkeys(counters, 0)
+        n_d, kernels[-1]["cross_process"], failed = dist_phase(
+            ba_keep, pgo_keep, kernels[-1], dev)
+        by_path["sharded_ba_2proc"]["ring_all_reduce"] = n_d
+        missed += failed
+        by_path["serving_mesh"], failed = serving_mesh_phase(
+            streams, rig, counters, dev)
+        missed += failed
+        missed += dense_mesh_phase(dense_keep, tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # 18. FAST corners (the ORB option) on the slice
-    fast_paths, failed = fast_phase(scenes_loop["circuit"], counters, dev)
-    by_path.update(fast_paths)
-    missed += failed
-    # 15. the chunked modes: CUDA-graph replays of the fused step's
-    # branches and PGO's graph
-    chunked_paths, failed = chunked_phase(
-        scenes_loop, (lefts, rights, gt, dist, rig), counters, dev, params,
-        eager_loop, slice_fps, args.profile)
-    by_path.update(chunked_paths)
-    missed += failed
     if args.profile:
         from stereovision_slam_torch.io.dataset import ArraySequenceDataset
         from stereovision_slam_torch.slam.fused_loop import (
@@ -2978,18 +3381,18 @@ def main() -> int:
     # on the sharded BA; every path's counts beside them
     ab_paths = ("loop_circuit", "loop_circuit_long", "cli_classic",
                 "cli_fused", "mnv2_loop", "mnv2_cli_classic", "fast_slice",
-                "fast_serving")
+                "fast_serving", "serving_mesh")
     main_path = {"lk_pyramid": ab_paths, "pose_lm": ab_paths,
                  "lk_iterate": ("serving_pallas",),
                  "gather_windows": ("serving_pallas",),
-                 "ring_all_reduce": ("sharded_ba",)}
+                 "ring_all_reduce": ("sharded_ba", "sharded_ba_2proc")}
     for k in kernels:
         k["launches"] = sum(by_path[p][k["name"]] for p in main_path[k["name"]])
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "cold_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_cold_ms",
-            "streams_4x3", "wide", "launches_by_path")
+            "streams_4x3", "wide", "cross_process", "launches_by_path")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(smi)

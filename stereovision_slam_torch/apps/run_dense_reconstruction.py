@@ -10,7 +10,8 @@ CONFIG is the reference's dense YAML (a `%YAML` line is skipped):
 of the sequence that keyframes.txt names, `is_color_input` (default 1)
 whether its PNGs are colour. The run goes to the card unless `--device
 cpu` is given. `--mesh` reconstructs keyframes in batches of (devices x
-`--per-device-batch`) instead of one by one; the port's mesh is one card.
+`--per-device-batch`) over every local card (one rank a card) instead of
+one by one.
 Writes <slam_output_dir>/dense_pointcloud.pcd.
 """
 

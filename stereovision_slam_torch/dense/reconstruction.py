@@ -14,11 +14,12 @@ host numpy, as in the reference.
 Batched mode (`mesh=`, the reference's `build_sharded_dense_kernel`):
 keyframes go through the disparity and back-projection in stacks of
 `mesh.size * per_device_batch`, padded with zero images (the texture gate
-marks every padded pixel invalid). The port's mesh lives on one device
-(`parallel/mesh.py`; several cards raise), so a stack is one batched pass
-on the card. The back-projection is written out as elementwise float32
-sums (no matmul), and the pose is inverted on the host, so a keyframe's
-points are the same bits on the CPU and on the card, batched or not.
+marks every padded pixel invalid). Each rank of the mesh takes its
+`per_device_batch` keyframes of a stack through one batched pass on its own
+device, and the host gathers the points. The back-projection is written out
+as elementwise float32 sums (no matmul), and the pose is inverted on the
+host, so a keyframe's points are the same bits on the CPU and on the card,
+batched or not.
 """
 
 from __future__ import annotations
@@ -186,16 +187,16 @@ class DenseReconstruction:
         baseline = abs(float(cam_r.baseline) - float(cam.baseline))
         return cam, baseline
 
-    def _points(self, lefts, rights, T_cws):
+    def _points(self, lefts, rights, T_cws, device=None):
         """Disparity and back-projection of one pair or a stack: (points,
-        mask) on the device."""
+        mask) on `device` (the reconstruction's by default)."""
         cfg = self.cfg
+        dev = self.device if device is None else device
         cam, baseline = self._cams()
         with self.timer.time("disparity"):
             disp, valid = compute_disparity(
-                torch.from_numpy(np.ascontiguousarray(lefts)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(rights)).to(
-                    self.device),
+                torch.from_numpy(np.ascontiguousarray(lefts)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(rights)).to(dev),
                 num_disparities=cfg.num_disparities,
                 block_size=cfg.block_size)
         with self.timer.time("back-projection"):
@@ -236,8 +237,10 @@ class DenseReconstruction:
 
     def _reconstruct_batched(self, kfs, mesh, per_device_batch: int):
         """Stacks of mesh.size * per_device_batch keyframes, zero-padded,
-        through one disparity and back-projection pass each; the host
-        applies the per-keyframe filter."""
+        split per rank: rank r's per_device_batch keyframes go through one
+        disparity and back-projection pass on the rank's device. The host
+        gathers the points and applies the per-keyframe filter, as the
+        reference's `_reconstruct_sharded` does."""
         B = mesh.size * per_device_batch
         loaded = []
         for frame_id, T in kfs:
@@ -254,9 +257,14 @@ class DenseReconstruction:
             rights = np.stack([a[1] for a, _ in chunk] + [zero] * pad)
             T_cws = np.stack([np.asarray(T, np.float32) for _, T in chunk]
                              + [ident] * pad)
-            pts, ok = self._points(lefts, rights, T_cws)
+            parts = [self._points(lefts[sl], rights[sl], T_cws[sl], dev)
+                     for sl, dev in ((slice(r * per_device_batch,
+                                            (r + 1) * per_device_batch), d)
+                                     for r, d in enumerate(mesh.devices))]
             for b, (arrs, _) in enumerate(chunk):
-                p, c = self._keep(pts[b], ok[b], arrs[2])
+                pts, ok = parts[b // per_device_batch]
+                r = b % per_device_batch
+                p, c = self._keep(pts[r], ok[r], arrs[2])
                 if len(p):
                     all_pts.append(p)
                     all_cols.append(c)
@@ -269,8 +277,9 @@ class DenseReconstruction:
         dense_pointcloud.pcd into the SLAM output directory. With `mesh`
         (a `parallel.mesh.Mesh`), keyframes go in batches instead of one by
         one. Returns (points, colours)."""
-        if mesh is not None and mesh.device.type != self.device.type:
-            raise ValueError(f"the mesh lives on {mesh.device}, the "
+        if mesh is not None and any(d.type != self.device.type
+                                    for d in mesh.devices):
+            raise ValueError(f"the mesh lives on {mesh.devices}, the "
                              f"reconstruction on {self.device}")
         self.counts = {"valid_points": 0}
         all_pts, all_cols = [], []

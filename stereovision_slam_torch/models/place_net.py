@@ -32,11 +32,10 @@ IN_H, IN_W = 48, 160     # fixed network input
 CONVS = [(32, 5, 2), (64, 3, 2), (96, 3, 2), (128, 3, 2)]
 POOL_W = 5               # horizontal cells kept before the projection
 
-# The trained weights ship with the reference package, as a data file.
-WEIGHTS_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "stereovision_slam_tpu", "models", "weights",
-    "place_net.npz")
+# The trained weights ship with the package, as a data file (a byte-identical
+# copy of the JAX package's).
+WEIGHTS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "weights", "place_net.npz")
 
 
 def preprocess(img_gray: torch.Tensor) -> torch.Tensor:

@@ -2,17 +2,28 @@
 `parallel/ring_reduce.py`, whose `_ring_kernel` the CUDA kernel of
 `csrc/ring_reduce.cu` replaces).
 
-The mesh's ranks are the leading axis of a tensor on one device
-(`parallel/mesh.py`). `ring_all_reduce_flat` all-reduces an
-(n_ranks, R, 128) float32 payload along `axis_name` (every ring of the mesh
-in one launch): the kernel on a CUDA tensor, `ring_all_reduce_plain` on a
-CPU tensor. Both compute chunk c of a ring (rows [c R / n, (c + 1) R / n))
-as the reference's reduce-scatter folds it: start from the rank at ring
-position c, then add the ranks at c + 1, c + 2, ... in turn. So they agree
-bit for bit with each other and with the reference; that order is not
-that of `x.sum(axis)`. `ring_psum` is the `psum` over a tuple, list or
-dict of tensors of shape (*mesh_shape, ...): one all-reduce of the
-concatenated leaves, padded as the reference pads them.
+The mesh's ranks are the leading axis of a tensor (`parallel/mesh.py`).
+`ring_all_reduce_flat` all-reduces an (n_ranks, R, 128) float32 payload
+along `axis_name` (every ring of the mesh in one launch): the kernel on a
+CUDA tensor, `ring_all_reduce_plain` on a CPU tensor. Both compute chunk c
+of a ring (rows [c R / n, (c + 1) R / n)) as the reference's reduce-scatter
+folds it: start from the rank at ring position c, then add the ranks at
+c + 1, c + 2, ... in turn. So they agree bit for bit with each other and
+with the reference; that order is not that of `x.sum(axis)`. `ring_psum` is
+the `psum` over a tuple, list or dict of tensors of shape (*mesh_shape,
+...): one all-reduce of the concatenated leaves, padded as the reference
+pads them.
+
+On a mesh over processes (`mesh=` with a process group) the payload is this
+process's (c, R, 128) block of ranks. On CUDA tensors every process copies
+it into a buffer it exposes once to the others through CUDA IPC (cached:
+the sharded BA reduces a payload of one shape every LM iteration), and
+launches kernel D once over a table of every rank's input, its own and its
+peers' pointers, with output entries for its own ranks only; a barrier
+before the launch (the peers' inputs are written) and one after it (no
+process overwrites an input a peer still reads) order the processes. On
+CPU tensors the payloads are all-gathered and `ring_all_reduce_plain`
+runs in every process. Both are bit for bit the one-process result.
 """
 
 from __future__ import annotations
@@ -20,8 +31,10 @@ from __future__ import annotations
 import array
 import ctypes
 import math
+import time
 
 import torch
+import torch.distributed as dist
 
 from stereovision_slam_torch.ops import _cuda
 
@@ -31,6 +44,11 @@ launch_count = 0
 #                    stream)
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _MAX_RANKS = 64     # csrc/ring_reduce.cu kMaxRanks
+# a list: the cross-process route appends {"device_ms", "sync_ms"} per call
+# (CUDA events around the launch; host time in the synchronizes and
+# barriers around it). None: nothing is timed.
+trace: list | None = None
+_peer_cache: dict = {}
 
 
 def _ring(axis_name: str, mesh_axes) -> tuple[int, int, list[int], int]:
@@ -42,12 +60,12 @@ def _ring(axis_name: str, mesh_axes) -> tuple[int, int, list[int], int]:
     return sizes[a], math.prod(sizes[a + 1:]), sizes, a
 
 
-def _check_payload(x: torch.Tensor, n: int, sizes: list[int]) -> None:
-    if x.dim() != 3 or x.shape[0] != math.prod(sizes) or x.shape[2] != LANES:
-        raise ValueError(f"ring all-reduce: payload {tuple(x.shape)} is not "
+def _check_payload(shape, n: int, sizes: list[int]) -> None:
+    if len(shape) != 3 or shape[0] != math.prod(sizes) or shape[2] != LANES:
+        raise ValueError(f"ring all-reduce: payload {tuple(shape)} is not "
                          f"({math.prod(sizes)}, R, {LANES})")
-    if x.shape[1] % (8 * n):
-        raise ValueError(f"ring all-reduce: R = {x.shape[1]} does not divide "
+    if shape[1] % (8 * n):
+        raise ValueError(f"ring all-reduce: R = {shape[1]} does not divide "
                          f"by 8 * {n}")
 
 
@@ -58,7 +76,7 @@ def ring_all_reduce_plain(x: torch.Tensor, axis_name: str,
     n, _, sizes, a = _ring(axis_name, mesh_axes)
     if n == 1:
         return x
-    _check_payload(x, n, sizes)
+    _check_payload(x.shape, n, sizes)
     N, R, C = x.shape
     others = sizes[:a] + sizes[a + 1:]
     # (ring position, other ranks, chunk, R / n, 128)
@@ -72,38 +90,139 @@ def ring_all_reduce_plain(x: torch.Tensor, axis_name: str,
     return out.reshape(n, *others, R, C).movedim(0, a).reshape(N, R, C)
 
 
-def ring_all_reduce_flat(x: torch.Tensor, axis_name: str,
-                         mesh_axes) -> torch.Tensor:
-    """All-reduce the (n_ranks, R, 128) payload along `axis_name`; R must
-    divide by 8 * n. On a CUDA tensor one launch of kernel D, which reads
-    nothing back to the host."""
-    n, stride, sizes, _ = _ring(axis_name, mesh_axes)
-    if n == 1:
-        return x   # a ring of one: nothing to add, and nothing to launch
-    if x.device.type == "cpu":
-        return ring_all_reduce_plain(x, axis_name, mesh_axes)
-    if x.device.type != "cuda":
-        raise ValueError(f"ring all-reduce: unsupported device {x.device}")
-    _check_payload(x, n, sizes)
+def _check_kernel_payload(x: torch.Tensor, N: int) -> None:
     if x.dtype != torch.float32 or not x.is_contiguous() \
             or x.data_ptr() % 16:
         raise ValueError("ring all-reduce: the payload must be contiguous, "
                          "16-byte aligned float32")
-    N, R, _ = x.shape
     if N > _MAX_RANKS:
         raise ValueError(f"ring all-reduce: {N} ranks, at most {_MAX_RANKS}")
-    out = torch.empty_like(x)
-    rank_bytes = R * LANES * x.element_size()
-    # the rank table: every rank's input, then every rank's output
-    ptrs = array.array("Q", [t.data_ptr() + r * rank_bytes
-                             for t in (x, out) for r in range(N)])
+
+
+def _launch(x_ptrs: list[int], out_ptrs: list[int], n: int, stride: int,
+            R: int, like: torch.Tensor) -> None:
+    """One launch of kernel D over the rank table (0: no output here)."""
+    N = len(x_ptrs)
+    ptrs = array.array("Q", x_ptrs + out_ptrs)
     fn = _cuda.function("ring_reduce", "ring_reduce_launch", _ARGTYPES)
     global launch_count
     launch_count += 1
     base = ptrs.buffer_info()[0]
     code = fn(base, base + 8 * N, N, n, stride, R // n * LANES // 4,
-              _cuda.stream_handle(x))
+              _cuda.stream_handle(like))
     _cuda.check(code, "ring_reduce")
+
+
+def ring_all_reduce_flat(x: torch.Tensor, axis_name: str,
+                         mesh_axes, mesh=None) -> torch.Tensor:
+    """All-reduce the (n_ranks, R, 128) payload along `axis_name`; R must
+    divide by 8 * n. On a CUDA tensor one launch of kernel D, which reads
+    nothing back to the host. With `mesh` over processes, `x` is this
+    process's (c, R, 128) block of ranks (see the module's docstring)."""
+    n, stride, sizes, _ = _ring(axis_name, mesh_axes)
+    if n == 1:
+        return x   # a ring of one: nothing to add, and nothing to launch
+    if mesh is not None and mesh.group is not None:
+        return _across_processes(x, axis_name, mesh_axes, mesh)
+    if x.device.type == "cpu":
+        return ring_all_reduce_plain(x, axis_name, mesh_axes)
+    if x.device.type != "cuda":
+        raise ValueError(f"ring all-reduce: unsupported device {x.device}")
+    _check_payload(x.shape, n, sizes)
+    N, R, _ = x.shape
+    _check_kernel_payload(x, N)
+    out = torch.empty_like(x)
+    rank_bytes = R * LANES * x.element_size()
+    # the rank table: every rank's input, then every rank's output
+    _launch([x.data_ptr() + r * rank_bytes for r in range(N)],
+            [out.data_ptr() + r * rank_bytes for r in range(N)],
+            n, stride, R, x)
+    return out
+
+
+def _peer_bases(mesh, like: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
+    """This process's exposed input buffer of `like`'s shape and every
+    process's base address of its own (peers' mapped through CUDA IPC),
+    made once per mesh group, shape and device."""
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    key = (id(mesh.group), tuple(like.shape), like.device)
+    hit = _peer_cache.get(key)
+    if hit is not None:
+        return hit[0], hit[1]
+    buf = torch.empty_like(like)
+    W, p = dist.get_world_size(mesh.group), dist.get_rank(mesh.group)
+    handles = [None] * W
+    dist.all_gather_object(handles, reduce_tensor(buf), group=mesh.group)
+    peers, bases = [], []
+    for q, (rebuild, args) in enumerate(handles):
+        if q == p:
+            bases.append(buf.data_ptr())
+            continue
+        try:
+            t = rebuild(*args)
+        except Exception as e:
+            raise RuntimeError(f"ring all-reduce: process {p} cannot map "
+                               f"process {q}'s buffer through CUDA IPC: "
+                               f"{e}") from e
+        peers.append(t)
+        bases.append(t.data_ptr())
+    _peer_cache[key] = (buf, bases, peers)
+    return buf, bases
+
+
+def release_peer_buffers() -> None:
+    """Drop the IPC mappings and the exposed buffers (call on every process,
+    before `destroy_process_group`)."""
+    groups = {key[0] for key in _peer_cache}
+    _peer_cache.clear()
+    if groups and dist.is_initialized():
+        dist.barrier()
+
+
+def _across_processes(x: torch.Tensor, axis_name: str, mesh_axes,
+                      mesh) -> torch.Tensor:
+    n, stride, sizes, _ = _ring(axis_name, mesh_axes)
+    c = len(mesh.ranks)
+    N = math.prod(sizes)
+    if x.dim() != 3 or x.shape[0] != c:
+        raise ValueError(f"ring all-reduce: payload {tuple(x.shape)} is not "
+                         f"this process's {c} ranks")
+    if x.device.type == "cpu":
+        parts = [torch.empty_like(x) for _ in range(N // c)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
+        full = ring_all_reduce_plain(torch.cat(parts), axis_name, mesh_axes)
+        return full[mesh.ranks.start:mesh.ranks.stop].clone()
+    if x.device.type != "cuda":
+        raise ValueError(f"ring all-reduce: unsupported device {x.device}")
+    _check_payload((N,) + tuple(x.shape[1:]), n, sizes)
+    R = x.shape[1]
+    buf, bases = _peer_bases(mesh, x)
+    _check_kernel_payload(buf, N)
+    buf.copy_(x)
+    out = torch.empty_like(x)
+    rank_bytes = R * LANES * x.element_size()
+    r0 = mesh.ranks.start
+    x_ptrs = [bases[r // c] + (r % c) * rank_bytes for r in range(N)]
+    out_ptrs = [out.data_ptr() + (r - r0) * rank_bytes
+                if r in mesh.ranks else 0 for r in range(N)]
+    t0 = time.perf_counter()
+    torch.cuda.synchronize(x.device)
+    dist.barrier(group=mesh.group)
+    t1 = time.perf_counter()
+    if trace is not None:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    _launch(x_ptrs, out_ptrs, n, stride, R, x)
+    if trace is not None:
+        ev[1].record()
+    t2 = time.perf_counter()
+    torch.cuda.synchronize(x.device)
+    dist.barrier(group=mesh.group)
+    t3 = time.perf_counter()
+    if trace is not None:
+        trace.append({"device_ms": ev[0].elapsed_time(ev[1]),
+                      "sync_ms": 1e3 * ((t1 - t0) + (t3 - t2))})
     return out
 
 
@@ -119,15 +238,18 @@ def _leaves(tree):
     raise TypeError(f"ring_psum: unsupported tree {type(tree)}")
 
 
-def ring_psum(tree, axis_name: str, mesh_axes):
+def ring_psum(tree, axis_name: str, mesh_axes, mesh=None):
     """`psum` over `axis_name` of a tree whose leaves have the mesh's shape
     as their leading axes: one ring all-reduce of the leaves flattened per
     rank, concatenated and zero-padded to a multiple of 128 * 8 * n floats
-    (the reference's layout, so its chunk boundaries)."""
+    (the reference's layout, so its chunk boundaries). With `mesh` over
+    processes the leaves lead with this process's `mesh.local_shape`."""
     leaves, rebuild = _leaves(tree)
     n, _, sizes, _ = _ring(axis_name, mesh_axes)
     if n == 1:
         return tree
+    if mesh is not None and mesh.group is not None:
+        sizes = list(mesh.local_shape)
     N = math.prod(sizes)
     for leaf in leaves:
         if list(leaf.shape[:len(sizes)]) != sizes:
@@ -141,7 +263,7 @@ def ring_psum(tree, axis_name: str, mesh_axes):
     total = -(-flat.shape[1] // row) * row
     flat = torch.nn.functional.pad(flat, (0, total - flat.shape[1]))
     red = ring_all_reduce_flat(flat.reshape(N, -1, LANES), axis_name,
-                               mesh_axes).reshape(N, -1)
+                               mesh_axes, mesh).reshape(N, -1)
     out, off = [], 0
     for leaf in leaves:
         size = leaf[(0,) * len(sizes)].numel()

@@ -9,14 +9,24 @@
        camera system is solved replicated, the landmark updates are
        back-substituted per slice and gathered.
 
-The ranks are tensor axes on one device (`parallel/mesh.py`): the local
-blocks have shape (n_dp, n_mp, ...), rank (i, j) holding those of
-observation chunk i. The dp reduction is `"xla"`, a sum over the dp axis
-(the counterpart of `lax.psum`), or `"ring"`, one launch of kernel D for
-the five blocks (`ring_reduce.ring_psum`). The small mp-axis Schur sum, the
-chi2 sums and the gather of the landmark updates stay plain tensor ops, as
-the reference leaves them to XLA. Values replicated over an axis are kept
-once. LM damping, Huber weights and the accept test are those of the
+The ranks are tensor axes (`parallel/mesh.py`): the local blocks have
+shape (n_dp, n_mp, ...), rank (i, j) holding those of observation chunk i.
+The dp reduction is `"xla"`, a sum over the dp axis (the counterpart of
+`lax.psum`), or `"ring"`, one launch of kernel D for the five blocks
+(`ring_reduce.ring_psum`). The small mp-axis Schur sum, the chi2 sums and
+the gather of the landmark updates stay plain tensor ops, as the reference
+leaves them to XLA. Values replicated over an axis are kept once.
+
+On a mesh over processes each process computes the blocks of its own
+ranks (its dp rows and mp columns); "xla" is the local sum over its dp rows
+followed by `all_reduce` over the processes of its dp ring, "ring" is
+kernel D across the processes; the mp-axis Schur sum, the chi2 sums and
+the gather of the landmark updates `all_reduce` where their axis crosses
+processes, and the replicated camera solve runs in every process, as
+`shard_map` runs it on every device. A mesh whose ranks sit on several
+devices of one process is refused: one process per card.
+
+LM damping, Huber weights and the accept test are those of the
 single-card solver (`slam/backend.py`), and so is the scatter of the
 per-rank partial blocks (`backend._assemble`, float64 sums rounded once).
 """
@@ -36,7 +46,7 @@ from stereovision_slam_torch.slam.backend import (
 
 def _local_blocks(cam_obs, kf_pose, lm_pos, obs, huber_d2, n_dp, K, L):
     """Per-dp-rank normal-equation blocks (n_dp, ...) of the observation
-    chunks (observation m belongs to rank m // (M / n_dp))."""
+    chunks given (observation m belongs to rank m // (M / n_dp))."""
     r, J_pose, J_point, in_front = _residuals(cam_obs, kf_pose, lm_pos, obs)
     c = torch.sum(r * r, dim=-1)
     w = torch.where(obs.valid & in_front,
@@ -73,7 +83,15 @@ def build_sharded_ba(mesh: Mesh, K: int, F: int, L: int,
     blocks."""
     if reduce_impl not in ("xla", "ring"):
         raise ValueError(f"reduce_impl {reduce_impl!r}: 'xla' or 'ring'")
+    if len(set(mesh.local_devices)) > 1:
+        raise NotImplementedError(
+            "the sharded BA runs one process per card: start one process per "
+            "device with `parallel.mesh.initialize_multihost` and build the "
+            "mesh in each (the PyTorch idiom for the reference's "
+            "single-host multi-device mesh)")
     n_dp, n_mp = mesh.shape["dp"], mesh.shape["mp"]
+    rows, cols = mesh.local_rows, mesh.local_cols
+    n_rows, n_cols = mesh.local_shape
     M = 2 * K * F
     compact = max_active_landmarks is not None and max_active_landmarks < L
     L_solve = max_active_landmarks if compact else L
@@ -84,29 +102,42 @@ def build_sharded_ba(mesh: Mesh, K: int, F: int, L: int,
         raise ValueError(f"landmark solve axis {L_solve} does not divide by "
                          f"mp = {n_mp}")
     Ls = L_solve // n_mp
+    Mc = M // n_dp                 # observations per dp rank
     huber_d2 = chi2_th * chi2_th
 
+    def mine(tree):
+        """The observations of this process's dp rows."""
+        if n_rows == n_dp:
+            return tree
+        return type(tree)(*(f[rows.start * Mc:rows.stop * Mc] for f in tree))
+
     def reduce_dp(blocks):
-        """psum over dp of per-dp blocks (n_dp, ...): the mp copies of each
-        rank, (n_mp, ...) after the reduction (every dp rank holds the
-        same)."""
+        """psum over dp of per-dp blocks (n_rows, ...): the copies of this
+        process's mp ranks, (n_cols, ...) after the reduction (every dp
+        rank holds the same)."""
         if reduce_impl == "xla":
-            return tuple(b.sum(0)[None].expand((n_mp,) + b.shape[1:])
-                         for b in blocks)
-        ranks = tuple(b[:, None].expand((n_dp, n_mp) + b.shape[1:])
+            return tuple(mesh.all_reduce(b.sum(0), "dp")[None].expand(
+                (n_cols,) + b.shape[1:]) for b in blocks)
+        ranks = tuple(b[:, None].expand((n_rows, n_cols) + b.shape[1:])
                       for b in blocks)
-        out = ring_reduce.ring_psum(ranks, "dp", mesh.mesh_axes)
+        out = ring_reduce.ring_psum(ranks, "dp", mesh.mesh_axes, mesh)
         return tuple(b[0] for b in out)
+
+    def chi2(cam_obs, kf_pose, lm_pos, obs):
+        return mesh.all_reduce(_robust_chi2(
+            cam_obs, kf_pose, lm_pos, obs, huber_d2, n_rows), "dp")
 
     def ba_step(obs, cam_obs, kf_pose, lm_pos, kf_free):
         dt, dev = kf_pose.dtype, kf_pose.device
         eye3 = torch.eye(3, dtype=dt, device=dev)
         eye6 = torch.eye(6, dtype=dt, device=dev)
         mi = mesh.axis_index("mp")
+        ci = torch.arange(n_cols, device=dev)
+        obs_r, cam_r = mine(obs), mine(cam_obs)
         lam = torch.tensor(1e-4, dtype=dt, device=dev)
         for _ in range(iters):
             H_pp, b_p, H_ll, b_l, G = reduce_dp(_local_blocks(
-                cam_obs, kf_pose, lm_pos, obs, huber_d2, n_dp, K, L_solve))
+                cam_r, kf_pose, lm_pos, obs_r, huber_d2, n_rows, K, L_solve))
             # replicated over mp: the copy of mp rank 0
             H_pp, b_p = H_pp[0], b_p[0]
             kf_active = (torch.diagonal(H_pp, dim1=-2, dim2=-1).sum(-1) > 0) \
@@ -115,19 +146,21 @@ def build_sharded_ba(mesh: Mesh, K: int, F: int, L: int,
             lm_active = lm_diag_all.sum(-1) > 0
 
             # landmark marginalization, mp rank j on its slice j
-            Hll_s = H_ll.reshape(n_mp, n_mp, Ls, 3, 3)[mi, mi]
-            bl_s = b_l.reshape(n_mp, n_mp, Ls, 3)[mi, mi]
-            G_s = G.reshape(n_mp, n_mp, Ls, K, 6, 3)[mi, mi]
-            act_s = lm_active.reshape(n_mp, Ls)
-            diag_s = lm_diag_all.reshape(n_mp, Ls, 3)
+            Hll_s = H_ll.reshape(n_cols, n_mp, Ls, 3, 3)[ci, mi]
+            bl_s = b_l.reshape(n_cols, n_mp, Ls, 3)[ci, mi]
+            G_s = G.reshape(n_cols, n_mp, Ls, K, 6, 3)[ci, mi]
+            act_s = lm_active.reshape(n_mp, Ls)[mi]
+            diag_s = lm_diag_all.reshape(n_mp, Ls, 3)[mi]
             Hll_d = Hll_s + lam * eye3 * torch.clamp(diag_s, min=1e-6)[
                 ..., None] * eye3
             Hll_d = torch.where(act_s[..., None, None], Hll_d, eye3)
             Hll_inv_s = torch.where(act_s[..., None, None],
                                     torch.linalg.inv_ex(Hll_d)[0], 0.0)
             GH_s = torch.einsum("mlkac,mlcd->mlkad", G_s, Hll_inv_s)
-            S = -torch.einsum("mlkad,mljbd->mkjab", GH_s, G_s).sum(0)
-            b_s = b_p - torch.einsum("mlkad,mld->mka", GH_s, bl_s).sum(0)
+            S = -mesh.all_reduce(
+                torch.einsum("mlkad,mljbd->mkjab", GH_s, G_s).sum(0), "mp")
+            b_s = b_p - mesh.all_reduce(
+                torch.einsum("mlkad,mld->mka", GH_s, bl_s).sum(0), "mp")
 
             diag_damp = H_pp + lam * eye6 * torch.clamp(
                 torch.diagonal(H_pp, dim1=-2, dim2=-1), min=1e-6)[
@@ -147,15 +180,14 @@ def build_sharded_ba(mesh: Mesh, K: int, F: int, L: int,
             # back-substitution per mp slice, then the all-gather
             Gt_dx = torch.einsum("mlkab,ka->mlb", G_s, dx_p)
             dx_l_s = torch.einsum("mlab,mlb->mla", Hll_inv_s, -bl_s - Gt_dx)
-            dx_l = torch.where(act_s[..., None], dx_l_s, 0.0).reshape(
+            dx_l = mesh.all_reduce_gather(
+                torch.where(act_s[..., None], dx_l_s, 0.0), "mp").reshape(
                 L_solve, 3)
 
             kf_new = se3.se3_compose(se3.se3_exp(dx_p), kf_pose)
             lm_new = lm_pos + dx_l
-            chi_new = _robust_chi2(cam_obs, kf_new, lm_new, obs, huber_d2,
-                                   n_dp)
-            chi_old = _robust_chi2(cam_obs, kf_pose, lm_pos, obs, huber_d2,
-                                   n_dp)
+            chi_new = chi2(cam_r, kf_new, lm_new, obs_r)
+            chi_old = chi2(cam_r, kf_pose, lm_pos, obs_r)
             better = chi_new < chi_old
             kf_pose = torch.where(better, kf_new, kf_pose)
             lm_pos = torch.where(better, lm_new, lm_pos)

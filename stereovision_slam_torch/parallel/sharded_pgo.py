@@ -6,7 +6,9 @@ of the padded edge list), the poses and the CG vectors are kept once
 (replicated), and each edge sum of the LM/PCG body (`pose_graph._optimize`)
 is a per-rank partial that a sum over the rank axis completes: the
 counterpart of the reference's `psum` over all mesh axes. Padding edges are
-invalid and weigh nothing.
+invalid and weigh nothing. On a mesh over processes each process holds
+the edges of its own ranks, and the sum is the local one followed by
+`all_reduce` over the processes.
 """
 
 from __future__ import annotations
@@ -46,12 +48,23 @@ def build_sharded_pgo(mesh: Mesh, iters: int = 22, cg_iters: int = 100):
     `optimize_pose_graph(g, iters, cg_iters)` with the edges over all
     `mesh.size` ranks."""
     n = mesh.size
+    if len(set(mesh.local_devices)) > 1:
+        raise NotImplementedError(
+            "the sharded PGO runs one process per card: start one process "
+            "per device with `parallel.mesh.initialize_multihost`")
+    r0, r1 = mesh.ranks.start, mesh.ranks.stop
 
     def run(g: PoseGraph) -> torch.Tensor:
         if g.poses.device != mesh.device:
             raise ValueError(f"the graph is on {g.poses.device}, the mesh on "
                              f"{mesh.device}")
-        return _optimize(_edge_ranks(_pad_edges(g, n), n), iters, cg_iters,
-                         reduce_fn=lambda partials: partials.sum(0))
+        ranks = _edge_ranks(_pad_edges(g, n), n)
+        if r1 - r0 < n:
+            ranks = ranks._replace(**{
+                f: getattr(ranks, f)[r0:r1] for f in ranks._fields[2:]
+                if getattr(ranks, f) is not None})
+        return _optimize(ranks, iters, cg_iters,
+                         reduce_fn=lambda partials: mesh.all_reduce(
+                             partials.sum(0)))
 
     return run

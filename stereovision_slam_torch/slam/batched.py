@@ -15,6 +15,10 @@ sub-batch on the device; here it is a host slice, because the phase is a
 host integer. `batched_fused_step` is the exact per-frame step
 (`kf_stagger` 0 or 1): `fused.fused_step` stream by stream, without LOST
 recovery, as the reference's vmapped step runs it.
+
+`BatchedFusedVisualOdometry(mesh=)` shards the streams over a mesh's ranks
+(the reference shards its stream axis over devices): each rank's
+sub-batch state lives on the rank's device and is stepped in turn.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from stereovision_slam_torch.device import resolve_device
 from stereovision_slam_torch.ops import image as imops
 from stereovision_slam_torch.ops.pose_kernel import camera_block
+from stereovision_slam_torch.parallel.mesh import Mesh
 from stereovision_slam_torch.slam import frontend as fe
 from stereovision_slam_torch.slam import map_state as mapmod
 from stereovision_slam_torch.slam.backend import optimize_window
@@ -168,7 +173,23 @@ def batched_fused_step(fs, ms, arc, kf_count, left_img, right_img, frame_id,
 class _Step(NamedTuple):
     fids: list
     alive: list
-    out: FrameOutputs
+    outs: list          # one FrameOutputs per shard, in stream order
+
+
+class _Shard:
+    """The streams of one mesh rank and their (b, ...) state on the rank's
+    device (one shard of every stream without a mesh)."""
+
+    def __init__(self, streams: range, device: torch.device):
+        self.streams, self.device = streams, device
+        self.fs = self.ms = self.arc = None
+        self.kf_count: list[int] = []
+        self.cam_left = self.cam_right = self.camp = None
+
+
+def _cat(trees, device):
+    """The shards' (b, ...) states as one (B, ...) state on `device`."""
+    return _map(lambda *xs: torch.cat([x.to(device) for x in xs]), *trees)
 
 
 class BatchedFusedVisualOdometry:
@@ -176,68 +197,114 @@ class BatchedFusedVisualOdometry:
     index, on `device`.
 
     Streams that end early keep feeding their last frame (every stream
-    carries data each step); their outputs stop being recorded."""
+    carries data each step); their outputs stop being recorded.
+
+    `mesh` (a `parallel.mesh.Mesh` in this process) shards the streams:
+    stream b belongs to rank b // (B / mesh.size), and each rank's
+    sub-batch state lives on the rank's device and is stepped in turn each
+    frame. Streams never interact, so a shard's step is the unsharded one
+    on its streams; `fs`, `ms`, `arc` and `kf_count` gather the shards."""
 
     def __init__(self, cfg: SlamConfig, datasets,
                  max_total_keyframes: int = 4096,
                  max_total_landmarks: int = 1 << 15, mesh=None,
                  kf_stagger: int = 0, device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise ValueError(
-                "mesh=: sharding the streams over several GPUs is not "
-                "ported (ROADMAP.md queue 1, item 18)")
         self.cfg = cfg
         self.datasets = list(datasets)
         self.B = len(self.datasets)
         self.Tmax = max_total_keyframes
         self.Lmax = max_total_landmarks
         self.kf_stagger = int(kf_stagger)
-        if self.kf_stagger > 1 and self.B % self.kf_stagger != 0:
-            raise ValueError(f"B={self.B} must be a multiple of kf_stagger="
-                             f"{self.kf_stagger}")
+        if self.kf_stagger > 1:
+            if mesh is not None:
+                raise ValueError("kf_stagger is a single-device lane "
+                                 "schedule; use mesh sharding without it")
+            if self.B % self.kf_stagger != 0:
+                raise ValueError(f"B={self.B} must be a multiple of "
+                                 f"kf_stagger={self.kf_stagger}")
         self.device = resolve_device(device)
+        if mesh is None:
+            self.shards = [_Shard(range(self.B), self.device)]
+        else:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh= takes a parallel.mesh.Mesh, not "
+                                f"{type(mesh).__name__}")
+            if mesh.group is not None:
+                raise ValueError(
+                    "mesh= shards the streams over the ranks of this "
+                    "process; streams never interact, so a mesh over "
+                    "processes is one server per process")
+            if self.B % mesh.size != 0:
+                raise ValueError(
+                    f"B={self.B} streams must divide the mesh size "
+                    f"{mesh.size} evenly (static per-device lane count)")
+            per = self.B // mesh.size
+            self.shards = [_Shard(range(r * per, (r + 1) * per), d)
+                           for r, d in enumerate(mesh.devices)]
         self._step_idx = 0
         self._steps: list[_Step] = []
         self._alive = [True] * self.B
         self._last = [None] * self.B
 
+    # the gathered state, read-only: code that changes state changes a
+    # shard's
+    def _gathered(self, name):
+        if len(self.shards) == 1:
+            return getattr(self.shards[0], name)
+        return _cat([getattr(sh, name) for sh in self.shards],
+                    self.shards[0].device)
+
+    fs = property(lambda self: self._gathered("fs"))
+    ms = property(lambda self: self._gathered("ms"))
+    arc = property(lambda self: self._gathered("arc"))
+    kf_count = property(
+        lambda self: [k for sh in self.shards for k in sh.kf_count])
+
     def initialize(self):
-        """Stereo initialization of every stream, one by one, then stack."""
-        cfg, dev = self.cfg, self.device
+        """Stereo initialization of every stream, one by one, then stack
+        each shard's."""
+        cfg = self.cfg
         for ds in self.datasets:
             ds.initialize()
         ds0 = self.datasets[0]
-        self.cam_left = ds0.get_camera(ds0.left_cam_index).to(dev)
-        self.cam_right = ds0.get_camera(ds0.right_cam_index).to(dev)
-        self.camp = camera_block(self.cam_left, self.cam_right)
-        fs_list, ms_list, fids = [], [], []
-        for b, ds in enumerate(self.datasets):
-            frame = ds.next_frame()
-            ms = mapmod.empty_map(cfg.max_keyframes_window, cfg.max_features,
-                                  cfg.max_landmarks, device=dev)
-            pyr, right_pyr = _split_pyramids(
-                *(torch.as_tensor(np.asarray(im, np.float32))[None].to(dev)
-                  for im in (frame.left, frame.right)), cfg.lk_num_levels)
-            fs = fe.init_state(cfg.max_features, lane(pyr, 0))
-            # the library's default LK budget, not cfg.lk_max_iters, as in
-            # the reference's initializer
-            fs, ms, _, _, _ = fe.keyframe_step(
-                fs, ms, lane(right_pyr, 0), self.cam_left, self.cam_right,
-                frame.frame_id, 0, num_features=cfg.num_features,
-                min_distance=cfg.gftt_min_distance,
-                quality_level=cfg.gftt_quality_level,
-                max_depth=cfg.max_triangulation_depth,
-                num_active=cfg.num_active_keyframes, detect_all=True,
-                detector=cfg.keypoint_feature_detector.lower())
-            fs_list.append(fs)
-            ms_list.append(ms)
-            fids.append(frame.frame_id)
-            self._last[b] = frame
-        self.fs, self.ms = stack(fs_list), stack(ms_list)
-        arc = empty_archive(self.Tmax, self.Lmax, device=dev)
-        self.arc = stack([_record_keyframe(arc, 0, fs.T_cur, fid)
-                          for fs, fid in zip(fs_list, fids)])
-        self.kf_count = [0] * self.B
+        for sh in self.shards:
+            dev = sh.device
+            sh.cam_left = ds0.get_camera(ds0.left_cam_index).to(dev)
+            sh.cam_right = ds0.get_camera(ds0.right_cam_index).to(dev)
+            sh.camp = camera_block(sh.cam_left, sh.cam_right)
+            fs_list, ms_list, fids = [], [], []
+            for b in sh.streams:
+                frame = self.datasets[b].next_frame()
+                ms = mapmod.empty_map(cfg.max_keyframes_window,
+                                      cfg.max_features, cfg.max_landmarks,
+                                      device=dev)
+                pyr, right_pyr = _split_pyramids(
+                    *(torch.as_tensor(np.asarray(im, np.float32))[None].to(
+                        dev) for im in (frame.left, frame.right)),
+                    cfg.lk_num_levels)
+                fs = fe.init_state(cfg.max_features, lane(pyr, 0))
+                # the library's default LK budget, not cfg.lk_max_iters, as
+                # in the reference's initializer
+                fs, ms, _, _, _ = fe.keyframe_step(
+                    fs, ms, lane(right_pyr, 0), sh.cam_left, sh.cam_right,
+                    frame.frame_id, 0, num_features=cfg.num_features,
+                    min_distance=cfg.gftt_min_distance,
+                    quality_level=cfg.gftt_quality_level,
+                    max_depth=cfg.max_triangulation_depth,
+                    num_active=cfg.num_active_keyframes, detect_all=True,
+                    detector=cfg.keypoint_feature_detector.lower())
+                fs_list.append(fs)
+                ms_list.append(ms)
+                fids.append(frame.frame_id)
+                self._last[b] = frame
+            sh.fs, sh.ms = stack(fs_list), stack(ms_list)
+            arc = empty_archive(self.Tmax, self.Lmax, device=dev)
+            sh.arc = stack([_record_keyframe(arc, 0, fs.T_cur, fid)
+                            for fs, fid in zip(fs_list, fids)])
+            sh.kf_count = [0] * len(sh.streams)
+        first = self.shards[0]
+        self.cam_left, self.cam_right = first.cam_left, first.cam_right
+        self.camp = first.camp
 
     def _statics(self) -> dict:
         cfg = self.cfg
@@ -277,57 +344,69 @@ class BatchedFusedVisualOdometry:
             fids.append(int(frame.frame_id))
         if not any_alive:
             return False
-        dev = self.device
-        left = torch.from_numpy(np.stack(lefts)).to(dev)
-        right = torch.from_numpy(np.stack(rights)).to(dev)
-        state = (self.fs, self.ms, self.arc, self.kf_count, left, right, fids)
-        if self.kf_stagger > 1:
-            res = batched_staggered_step(
-                *state, self._step_idx % self.kf_stagger, self.cam_left,
-                self.cam_right, camp=self.camp, **self._statics())
-        else:
-            res = batched_fused_step(*state, self.cam_left, self.cam_right,
-                                     camp=self.camp, **self._statics())
-        self.fs, self.ms, self.arc, self.kf_count, out = res
+        outs = []
+        for sh in self.shards:
+            sl = slice(sh.streams.start, sh.streams.stop)
+            left = torch.from_numpy(np.stack(lefts[sl])).to(sh.device)
+            right = torch.from_numpy(np.stack(rights[sl])).to(sh.device)
+            state = (sh.fs, sh.ms, sh.arc, sh.kf_count, left, right,
+                     fids[sl])
+            if self.kf_stagger > 1:
+                res = batched_staggered_step(
+                    *state, self._step_idx % self.kf_stagger, sh.cam_left,
+                    sh.cam_right, camp=sh.camp, **self._statics())
+            else:
+                res = batched_fused_step(*state, sh.cam_left, sh.cam_right,
+                                         camp=sh.camp, **self._statics())
+            sh.fs, sh.ms, sh.arc, sh.kf_count, out = res
+            outs.append(out)
         self._step_idx += 1
-        self._steps.append(_Step(fids, list(self._alive), out))
+        self._steps.append(_Step(fids, list(self._alive), outs))
         return True
 
     def run(self):
         while self.step():
             pass
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in {sh.device for sh in self.shards}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     @property
     def outputs(self) -> list[list[tuple[int, FrameOutputs]]]:
         """Per stream, (frame_id, FrameOutputs) of every frame it fed."""
         outs = [[] for _ in range(self.B)]
         for st in self._steps:
-            n_in = st.out.n_inliers.cpu().numpy()
-            n_tr = st.out.n_tracked.cpu().numpy()
-            pose = st.out.pose.cpu().numpy()
+            n_in = np.concatenate([o.n_inliers.cpu().numpy()
+                                   for o in st.outs])
+            n_tr = np.concatenate([o.n_tracked.cpu().numpy()
+                                   for o in st.outs])
+            pose = np.concatenate([o.pose.cpu().numpy() for o in st.outs])
+            kf_in = np.concatenate([np.asarray(o.kf_inserted)
+                                    for o in st.outs])
+            kf_c = np.concatenate([np.asarray(o.kf_count) for o in st.outs])
             for b in range(self.B):
                 if st.alive[b]:
                     outs[b].append((st.fids[b], FrameOutputs(
                         n_inliers=np.int32(n_in[b]),
                         n_tracked=np.int32(n_tr[b]),
-                        kf_inserted=np.bool_(st.out.kf_inserted[b]),
-                        kf_count=np.int32(st.out.kf_count[b]),
+                        kf_inserted=np.bool_(kf_in[b]),
+                        kf_count=np.int32(kf_c[b]),
                         pose=pose[b])))
         return outs
 
     def trajectories(self) -> list[dict[int, np.ndarray]]:
         """Per stream, frame_id -> (3, 4) keyframe pose; window values
         override the archive."""
-        arc = type(self.arc)(*(t.cpu().numpy() for t in self.arc))
-        ms = type(self.ms)(*(t.cpu().numpy() for t in self.ms))
         out = []
-        for b in range(self.B):
-            keyframes = {int(k): (int(arc.kf_frame_id[b, k]), arc.kf_pose[b, k])
-                         for k in np.nonzero(arc.kf_set[b])[0]}
-            for s in np.nonzero(ms.kf_valid[b])[0]:
-                keyframes[int(ms.kf_id[b, s])] = (int(ms.kf_frame_id[b, s]),
-                                                  ms.kf_pose[b, s])
-            out.append({fid: pose for fid, pose in keyframes.values()})
+        for sh in self.shards:
+            arc = type(sh.arc)(*(t.cpu().numpy() for t in sh.arc))
+            ms = type(sh.ms)(*(t.cpu().numpy() for t in sh.ms))
+            for b in range(len(sh.streams)):
+                keyframes = {int(k): (int(arc.kf_frame_id[b, k]),
+                                      arc.kf_pose[b, k])
+                             for k in np.nonzero(arc.kf_set[b])[0]}
+                for s in np.nonzero(ms.kf_valid[b])[0]:
+                    keyframes[int(ms.kf_id[b, s])] = (
+                        int(ms.kf_frame_id[b, s]), ms.kf_pose[b, s])
+                out.append({fid: pose for fid, pose in keyframes.values()})
         return out

@@ -28,6 +28,7 @@ from stereovision_slam_torch.geometry import se3
 from stereovision_slam_torch.models import mobilenet_v2 as mnv2
 from stereovision_slam_torch.models import place_net
 from stereovision_slam_torch.ops import descriptors, matching, prng
+from stereovision_slam_torch.parallel.sharded_pgo import build_sharded_pgo
 from stereovision_slam_torch.slam import map_state as mapmod
 from stereovision_slam_torch.slam.fused_loop import embed, loop_information
 from stereovision_slam_torch.slam.pnp import pnp_ransac
@@ -129,12 +130,15 @@ class LoopClosure:
 
     embedder: 'mobilenet' (MobileNet-V2: the weights file, else the seeded
     network), 'placenet' (the shipped weights), 'thumbnail' (weight-free)
-    or 'auto' (see `resolve_embedder`)."""
+    or 'auto' (see `resolve_embedder`). pgo_mesh: an optional
+    `parallel.mesh.Mesh`; with more than one rank the shutdown PGO shards
+    its edges over it (`parallel.sharded_pgo`) instead of one solve."""
 
     def __init__(self, cfg, cam_left, mnv2_weights_path: str | None = None,
-                 embedder: str = "auto"):
+                 embedder: str = "auto", pgo_mesh=None):
         self.cfg = cfg
         self.cam_left = cam_left
+        self.pgo_mesh = pgo_mesh
         self.device = cam_left.fx.device
         self.embedder, self.params = resolve_embedder(
             embedder, mnv2_weights_path, self.device)
@@ -360,7 +364,10 @@ class LoopClosure:
                                   device=self.device),
             edge_info=(t(np.stack(infos).astype(np.float32)) if weighted
                        else None))
-        new_poses = optimize_pose_graph(g, iters=22)
+        if self.pgo_mesh is not None and self.pgo_mesh.size > 1:
+            new_poses = build_sharded_pgo(self.pgo_mesh, iters=22)(g)
+        else:
+            new_poses = optimize_pose_graph(g, iters=22)
         for rec, pose in zip(recs, new_poses.cpu().numpy()):
             rec.pose = pose
 

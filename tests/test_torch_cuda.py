@@ -627,3 +627,28 @@ def test_mobilenet_convolutions_cuda_match_cpu(dev):
                           img.to(dev)).cpu()
     cos = float(e @ ec)
     assert cos > 0.999 and float((e - ec).abs().max()) < 5e-3
+
+
+@pytest.mark.parametrize("R", [64, 4832])
+def test_ring_reduce_two_processes_bit_equal(dev, tmp_path, R):
+    """Kernel D across two processes on the card (gloo, both on cuda:0, 4
+    ranks each; peers' inputs mapped through CUDA IPC): each process's
+    ranks bit for bit the one-process launch along both axes, one launch
+    a process and call, the same bits on a second call over the cached
+    mappings. R = 4832 is the sharded BA's payload (phase 11)."""
+    from tests import torch_dist_worker
+
+    rng = np.random.default_rng(R)
+    payload = rng.standard_normal((8, R, rr.LANES)).astype(np.float32)
+    np.savez(tmp_path / "inputs.npz", payload=payload)
+    res = torch_dist_worker.spawn(str(tmp_path / "inputs.npz"),
+                                  str(tmp_path), "cuda", timeout=180)
+    x = torch.from_numpy(payload).to(dev)
+    ma = (("dp", 4), ("mp", 2))
+    for axis in ("dp", "mp"):
+        want = rr.ring_all_reduce_flat(x, axis, ma).cpu().numpy()
+        got = np.concatenate([r[f"ring_{axis}"] for r in res])
+        np.testing.assert_array_equal(got, want)
+    for r in res:
+        assert int(r["launches"]) == 4
+        assert len(r["device_ms"]) == 4

@@ -28,7 +28,8 @@ from stereovision_slam_torch.dense import reconstruction as rec
 from stereovision_slam_torch.geometry.camera import Camera
 from stereovision_slam_torch.io.dataset import ArraySequenceDataset
 from stereovision_slam_torch.io.pcd import read_pcd
-from stereovision_slam_torch.parallel.mesh import make_local_mesh
+from stereovision_slam_torch.parallel.mesh import (
+    make_ba_mesh, make_local_mesh)
 from stereovision_slam_torch.slam.outputs import save_slam_output
 from tests import synthetic
 
@@ -192,6 +193,35 @@ def test_batched_equals_serial(scene, tmp_path):
                               mesh=mesh, per_device_batch=4)
     np.testing.assert_array_equal(batched, serial)
     np.testing.assert_array_equal(bcols, scols)
+
+
+def test_mesh_over_ranks_equals_serial(scene, tmp_path):
+    """The reference's sharded case (tests/test_dense.py): 3 keyframes over
+    a 4-rank mesh (one keyframe a rank, the fourth rank a zero pad), each
+    rank's pass on its own device entry, give the serial cloud bit for
+    bit."""
+    lefts, rights, kfs = _sequence(3)
+    out = save_slam_output(str(tmp_path / "slam"), "<synthetic>", 0, kfs,
+                           np.zeros((0, 3)), timestamped_subdir=False)
+    serial, scols, _ = _port(out, lefts, rights, str(tmp_path), "density")
+    mesh = make_ba_mesh(devices=["cpu"] * 4)
+    assert mesh.size == 4
+    calls = []
+    points = rec.DenseReconstruction._points
+
+    def counted(self, lefts, rights, T_cws, device=None):
+        calls.append((len(lefts), device))
+        return points(self, lefts, rights, T_cws, device)
+    rec.DenseReconstruction._points = counted
+    try:
+        sharded, cols, _ = _port(out, lefts, rights, str(tmp_path),
+                                 "density", mesh=mesh)
+    finally:
+        rec.DenseReconstruction._points = points
+    assert calls == [(1, torch.device("cpu"))] * 4
+    assert len(sharded) > 500
+    np.testing.assert_array_equal(sharded, serial)
+    np.testing.assert_array_equal(cols, scols)
 
 
 def test_filters_match_reference():

@@ -1,0 +1,42 @@
+"""The port's import rule: no module of `stereovision_slam_torch` imports
+JAX or the JAX package, and the port reads no file of the JAX package."""
+
+import filecmp
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, json, pkgutil, sys
+import stereovision_slam_torch as pkg
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "stereovision_slam_tpu")))
+print(json.dumps({"modules": len(names), "bad": bad}))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["modules"] > 60, res
+    assert res["bad"] == [], f"the port imported {res['bad']}"
+
+
+def test_place_net_weights_are_the_ports_own_copy():
+    from stereovision_slam_torch.models import place_net
+    port_dir = os.path.join(REPO, "stereovision_slam_torch")
+    path = os.path.realpath(place_net.WEIGHTS_PATH)
+    assert path.startswith(os.path.realpath(port_dir) + os.sep)
+    ref = os.path.join(REPO, "stereovision_slam_tpu", "models", "weights",
+                       "place_net.npz")
+    assert filecmp.cmp(path, ref, shallow=False)

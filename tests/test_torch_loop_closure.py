@@ -261,6 +261,44 @@ def test_stop_matches_reference_pgo():
     assert not np.allclose(tvo.archived_landmarks[7], [1.0, 0.0, 5.0])
 
 
+def test_stop_sharded_pgo_matches_reference(monkeypatch):
+    """`stop` with `pgo_mesh` (8 ranks) against the reference's
+    `LoopClosure(pgo_mesh=)` on its 8 virtual CPU devices: the sharded PGO
+    in both packages, at the same tolerances."""
+    from stereovision_slam_tpu.parallel.mesh import make_ba_mesh as jmesh
+    from stereovision_slam_torch.parallel.mesh import make_ba_mesh
+
+    gt, est, true_rel = _drifted_line()
+    cfg = JConfig()
+    left, _ = synthetic.make_stereo_rig()
+    ref = jlc.LoopClosure(cfg, left, embedder="thumbnail", pgo_mesh=jmesh(8))
+    port = tlc.LoopClosure(convert.slam_config(cfg), convert.camera(left),
+                           embedder="thumbnail",
+                           pgo_mesh=make_ba_mesh(8, device="cpu"))
+    built = []
+    build = tlc.build_sharded_pgo
+    monkeypatch.setattr(tlc, "build_sharded_pgo",
+                        lambda mesh, **kw: built.append(mesh) or build(
+                            mesh, **kw))
+    jvo, tvo = FakeVO(), FakeVO()
+    _fill(jvo, ref, est, true_rel, JRecord, jlc.LoopEdge)
+    _fill(tvo, port, est, true_rel, KeyframeRecord, tlc.LoopEdge)
+    ref.stop(jvo)
+    port.stop(tvo)
+    assert port.pgo_ran and ref.pgo_ran
+    assert built == [port.pgo_mesh]
+    for k, rec in jvo.archived_keyframes.items():
+        np.testing.assert_allclose(tvo.archived_keyframes[k].pose, rec.pose,
+                                   atol=PGO_TOL)
+    np.testing.assert_allclose(tvo.archived_landmarks[7],
+                               jvo.archived_landmarks[7], atol=PGO_TOL)
+    n = len(est)
+    before = np.linalg.norm(est[-1][:, 3] - gt[-1][:, 3])
+    after = np.linalg.norm(tvo.archived_keyframes[n - 1].pose[:, 3]
+                           - gt[-1][:, 3])
+    assert after < 0.5 * before
+
+
 def test_stop_writes_back_the_window():
     """After PGO the active window holds the optimized poses and
     landmarks, so that folding it into the archives again keeps them."""

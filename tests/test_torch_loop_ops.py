@@ -148,7 +148,11 @@ def test_hamming_ties_take_the_lowest_index():
 def test_place_net_and_thumbnail_match_reference(circuit_frames):
     jp = jplace.get_params()
     tp = place_net.get_params(device="cpu")
-    assert place_net.WEIGHTS_PATH == jplace.WEIGHTS_PATH
+    # the port's own copy of the reference's weights file, byte for byte
+    assert place_net.WEIGHTS_PATH != jplace.WEIGHTS_PATH
+    with open(place_net.WEIGHTS_PATH, "rb") as a, \
+            open(jplace.WEIGHTS_PATH, "rb") as b:
+        assert a.read() == b.read()
     # the reference's parameter tree converts to the same OIHW tensors
     tree = convert.place_net_params(jp)
     for a, b in zip(tree["convs"] + [tree["proj"]], tp["convs"] + [tp["proj"]]):

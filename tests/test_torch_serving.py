@@ -37,6 +37,7 @@ from stereovision_slam_torch import convert
 from stereovision_slam_torch.io.dataset import ArraySequenceDataset
 from stereovision_slam_torch.ops import image as timg
 from stereovision_slam_torch.ops import pose_kernel as pk
+from stereovision_slam_torch.parallel.mesh import make_ba_mesh
 from stereovision_slam_torch.slam import batched as tb
 from stereovision_slam_torch.slam import frontend as tfe
 from stereovision_slam_torch.slam import pose_solver as tps
@@ -267,11 +268,78 @@ def _hold_batched_to_single_streams(streams, ref_cfg):
 
 
 def test_mesh_raises(streams):
-    with pytest.raises(ValueError, match="queue 1, item 18"):
+    cfg = convert.slam_config(small_config())
+    with pytest.raises(ValueError, match="kf_stagger"):
         tb.BatchedFusedVisualOdometry(
-            convert.slam_config(small_config()), _datasets(streams[:2], 4),
-            mesh=object(), device="cpu")
+            cfg, _datasets(streams[:2], 4), kf_stagger=2,
+            mesh=make_ba_mesh(2, device="cpu"), device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        tb.BatchedFusedVisualOdometry(
+            cfg, _datasets(streams[:2], 4), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="multiple"):
         tb.BatchedFusedVisualOdometry(
             convert.slam_config(small_config()), _datasets(streams[:3], 4),
             kf_stagger=2, device="cpu")
+
+
+def test_batched_mesh_requires_divisible_batch(streams):
+    """The counterpart of tests/test_batched.py's: 3 streams over 8 ranks."""
+    with pytest.raises(ValueError, match="divide"):
+        tb.BatchedFusedVisualOdometry(
+            convert.slam_config(small_config()), _datasets(streams[:3], 4),
+            mesh=make_ba_mesh(8, device="cpu"), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(streams):
+    """tests/test_batched.py's sharded case: 8 streams (stream s is world
+    s % 4) of 8 frames, per-frame step, through the port unsharded and over
+    an 8-rank CPU mesh."""
+    T = 8
+
+    def port(mesh):
+        vo = tb.BatchedFusedVisualOdometry(
+            convert.slam_config(small_config()),
+            _datasets(streams, T) + _datasets(streams, T),
+            max_total_keyframes=64, max_total_landmarks=2048, mesh=mesh,
+            device="cpu")
+        vo.initialize()
+        vo.run()
+        return vo
+
+    return port(None), port(make_ba_mesh(8, device="cpu"))
+
+
+def test_batched_mesh_sharded_matches_unsharded(streams, mesh_runs):
+    """Streams are independent: each rank's sub-batch steps exactly as the
+    unsharded batch does, so the two agree bit for bit (the reference holds
+    its sharded run to 1e-3 of its unsharded one, its partitioned programs
+    reordering float operations). Here a whole run is not held to the
+    reference's: on the CPU the reference tracks with its full-image LK
+    and the port with its windowed lanes LK, and they part from the first
+    frame (1.5e-3 to 4.5e-2 apart on these streams). The reference's mesh
+    run with its lanes LK interpreted is held to the port's at 1e-3 by
+    `python -m tests.torch_serving_mesh_reference`, whose reference run
+    takes minutes of the CPU (ROADMAP.md queue 3). Each stream is held to
+    its ground truth instead, as `test_staggered_serving_tracks_ground_
+    truth` holds it."""
+    plain, sharded = mesh_runs
+    T = 8
+    assert [sh.streams for sh in sharded.shards] == [range(b, b + 1)
+                                                     for b in range(8)]
+    assert len(sharded.fs.T_cur) == 8 and len(sharded.kf_count) == 8
+    for s, (a, b) in enumerate(zip(plain.trajectories(),
+                                   sharded.trajectories())):
+        assert set(a) == set(b) and len(a) >= 2
+        for fid in a:
+            np.testing.assert_array_equal(b[fid], a[fid])
+        poses = streams[s % 4][1]
+        errs = [np.linalg.norm(-p[:, :3].T @ p[:, 3]
+                               + poses[f][:, :3].T @ poses[f][:, 3])
+                for f, p in b.items()]
+        dist = (0.35 + 0.05 * (s % 4)) * T
+        assert np.sqrt(np.mean(np.square(errs))) < 0.05 * dist
+    for oa, ob in zip(plain.outputs, sharded.outputs):
+        assert [int(o.n_inliers) for _, o in oa] == \
+            [int(o.n_inliers) for _, o in ob]
+        assert all(o.n_inliers > 10 for _, o in ob)
