@@ -126,6 +126,26 @@ Phases, in order; any failure exits non-zero:
      over a two-rank mesh, bit for bit phase 16's batched cloud. The card's
      machine has no libpng, so the native frame loader is not run here
      (the CPU tests hold it).
+ 20. the reference's loop-scene scenarios (tests/test_loop_scenes.py,
+     test_hard_scene.py, test_long_sequence.py), rendered on "cuda" by
+     `scenes`, with the reference's settings (`shared_cfg`, 256 keyframes
+     and 32,768 landmarks of archive) and its assertions: (a) the
+     112-frame figure-eight closes >= 2 loops, one spanning >= 40
+     keyframes, PGO no worse; (b) the 4-fold aliased arena and (c) the
+     straight corridor accept no loop; (d) PlaceNet's candidate precision
+     and recall on the 96-frame circuit >= 0.7; (e) a seeded MobileNet-V2
+     at the reference's gates over a 40-frame circle, no loop; (f) the
+     hard scene's renderer, then 100 hard frames (inliers > 10 on > 90%
+     of frames, ATE after PGO < 3%), chunked and again eager with every
+     kernel A and B launch held to its plain version; (g) the 150-frame
+     corridor with `SlamConfig()` through `ScanVisualOdometry`, drift < 2%
+     through `trajectory()`. The loop scenarios run
+     `ScanLoopVisualOdometry` (chunk 8); fps, keyframes, loops and ATE of
+     each;
+ 21. PlaceNet's training tool (`apps.train_place_net`) at its defaults
+     on the card into a temporary file: a falling, finite loss, the new
+     weights through the reference's held-out world test, the validation
+     table beside the shipped weights', the shipped file unchanged.
 
 Phases 2, 3 and 6 also check the sizes the kernels once refused (kernel
 A's windows 21 and 31, kernel B at 2048 points, kernel C's patch 21) and
@@ -263,6 +283,15 @@ MNV2_EMB_TOL = 5e-3
 # decisions at the threshold and what follows from them, so the gate sits
 # below both
 DENSE_ARENA_MIN = 0.95
+# phase 20: the reference's loop-scene scenarios (tests/test_loop_scenes.py,
+# test_hard_scene.py, test_long_sequence.py) with their settings, capacities
+# and assertions; every loop scenario through the chunked loop path, the
+# hard scene also eager, its kernel A and B launches recorded and held
+SCEN_MAX_KF, SCEN_MAX_LM = 256, 1 << 15
+SCEN_CHUNK = 8
+# phase 21: PlaceNet training at the tool's defaults; the loss's first and
+# last LOSS_WINDOW steps are compared
+LOSS_WINDOW = 100
 
 
 def check(ok: bool, msg: str) -> None:
@@ -3152,6 +3181,318 @@ def dense_mesh_phase(dense: dict, tmp: str, dev) -> list:
     return missed
 
 
+def shared_cfg(**overrides):
+    """The reference scenarios' one operating point
+    (tests/test_loop_scenes.py:41-56): 250 features, LK 12, pose 3 x 6, BA
+    6 and `PLACENET_LOOP_GATES`, with the keys the reference's
+    per-sequence configs vary as `overrides`."""
+    from stereovision_slam_torch.slam.config import (PLACENET_LOOP_GATES,
+                                                     SlamConfig)
+
+    cfg = SlamConfig(num_features=250, lk_max_iters=12, pose_rounds=3,
+                     pose_iters_per_round=6, ba_lm_iters=6, **overrides)
+    for k, v in PLACENET_LOOP_GATES.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def scenario_run(label: str, scene, cfg, counters, dev, params,
+                 totals: dict, chunked: bool = True, records=None,
+                 pgo: bool = False) -> dict:
+    """Phase 20: one scenario, (lefts, rights, gt) rendered on the card,
+    through the loop path on "cuda": `ScanLoopVisualOdometry` (chunk 8),
+    or with `chunked` False `FusedLoopVisualOdometry` with every kernel A
+    and B launch recorded into `records`; the counters set to 0 before it,
+    its launches added to `totals`; then PGO if `pgo`. Prints and returns
+    fps, keyframes, loops, inliers and ATE (keyframes, and after PGO)."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch import scenes
+    from stereovision_slam_torch.io.dataset import ArraySequenceDataset
+    from stereovision_slam_torch.slam.fused_loop import (
+        FusedLoopVisualOdometry, ScanLoopVisualOdometry)
+    from stereovision_slam_torch.utils.evaluation import ate_rmse
+
+    lefts, rights, gt = scene
+    gt = dict(enumerate(gt))
+    T = len(lefts)
+    kw = {"chunk_size": SCEN_CHUNK} if chunked else {}
+    vo = (ScanLoopVisualOdometry if chunked else FusedLoopVisualOdometry)(
+        cfg, ArraySequenceDataset(lefts, rights,
+                                  list(scenes.make_stereo_rig())),
+        place_params=params, max_total_keyframes=SCEN_MAX_KF,
+        max_total_landmarks=SCEN_MAX_LM, device=dev, **kw)
+    vo.initialize()
+    for mod in counters.values():
+        mod.launch_count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with (recorded(records) if records is not None
+          else contextlib.nullcontext()):
+        vo.run()
+    dt = time.perf_counter() - t0
+    launches = {k: m.launch_count for k, m in counters.items()}
+    for k, n in launches.items():
+        totals[k] = totals.get(k, 0) + n
+    keyframes, _, frames = vo.drain()
+    info = dict(vo=vo, keyframes=keyframes, edges=vo.loop_edges(),
+                n_in=np.array([int(f.n_inliers) for _, f in frames]),
+                ate=ate_rmse(dict(keyframes.values()), gt, align=False),
+                ate_pgo=None)
+    if pgo:
+        info["ate_pgo"] = ate_rmse(vo.run_pgo(), gt, align=False)
+    edges = info["edges"]
+    print(f"phase 20 {label}: {T} frames in {dt:.3f} s = {T / dt:.2f} fps "
+          f"({type(vo).__name__}, host clock, ends in synchronize), "
+          f"{len(keyframes)} keyframes, {len(edges)} loops "
+          f"{[(e.kf_id, e.loop_kf_id) for e in edges]}, inliers >= "
+          f"{info['n_in'][1:].min()}, keyframe ATE {info['ate']:.4f} m"
+          + (f", after PGO {info['ate_pgo']:.4f} m" if pgo else "")
+          + f"; launches {launches}")
+    info["fps"] = T / dt
+    return info
+
+
+def scenario_phase(counters, dev, params) -> tuple[dict, float, float, list]:
+    """Phase 20: the reference's loop-scene scenarios on the card, each
+    with the reference's settings and its own assertions: (a) the
+    figure-eight closes >= 2 loops, one spanning >= 40 keyframes, and PGO
+    does not degrade it; (b) the 4-fold aliased arena over 3/4 of a circle
+    and (c) the straight self-similar corridor accept no loop; (d)
+    PlaceNet's candidate precision and recall on the 96-frame circuit at
+    the strong gate >= 0.7; (e) a seeded MobileNet-V2 at the reference's
+    gates tracks the 40-frame circle with no loop; (f) the hard scene's
+    renderer, then 100 hard frames with inliers > 10 on > 90% of frames
+    and ATE after PGO < 3% of the path, chunked and eager (every kernel A
+    and B launch of the eager run held to its plain version after it); (g) the 150-frame corridor with
+    `SlamConfig()` through `ScanVisualOdometry`: inliers > 30, > 10
+    keyframes, drift < 2% (through `trajectory()`). Returns (kernel A and
+    B launches, their largest errors on the hard scene, the gates
+    missed)."""
+    import numpy as np
+    import torch
+    from stereovision_slam_torch import scenes
+    from stereovision_slam_torch.apps.train_place_net import candidate_pr
+    from stereovision_slam_torch.io.dataset import ArraySequenceDataset
+    from stereovision_slam_torch.models import mobilenet_v2, place_net
+    from stereovision_slam_torch.slam.config import (PLACENET_LOOP_GATES,
+                                                     SlamConfig)
+    from stereovision_slam_torch.slam.fused import ScanVisualOdometry
+    from stereovision_slam_torch.utils.evaluation import ate_rmse
+
+    t_phase = time.perf_counter()
+    arena = dict(center=(0.0, 6.0), radius=25.0, device=dev)
+
+    def render(fn, poses, **kw):
+        lefts, rights = fn(poses, **kw)
+        return (lefts.cpu().numpy(), rights.cpu().numpy(),
+                np.asarray(poses.numpy()))
+
+    def center(p):
+        return -p[:, :3].T @ p[:, 3]
+
+    totals, missed = {}, []
+
+    def gate(ok: bool, msg: str) -> None:
+        if not ok:
+            missed.append(f"phase 20 {msg}")
+
+    every_frame = shared_cfg(num_features_needed_for_keyframe=1000)
+    # (a) the figure-eight: two same-heading revisits of the crossing
+    scene = render(scenes.render_arena_stereo_sequence,
+                   scenes.figure_eight_poses(112, step=0.5), **arena)
+    r = scenario_run("(a) figure-eight", scene, every_frame, counters, dev,
+                     params, totals, pgo=True)
+    spans = sorted(e.kf_id - e.loop_kf_id for e in r["edges"])
+    gate(len(spans) >= 2 and spans[-1] >= 40,
+         f"(a): loops spanning {spans} keyframes (>= 2, one >= 40)")
+    gate(bool(np.isfinite(r["ate_pgo"])) and r["ate_pgo"] <= r["ate"] + 1e-6,
+         f"(a): PGO degraded the trajectory: {r['ate']} -> {r['ate_pgo']}")
+    # (b) perceptual aliasing: 3/4 of a circle, every candidate false
+    scene = render(scenes.render_arena_stereo_sequence,
+                   scenes.forward_motion_poses(72, step=0.5,
+                                               yaw_rate=2 * np.pi / 96),
+                   wall_symmetry=4, **arena)
+    r = scenario_run("(b) aliased arena", scene, every_frame, counters, dev,
+                     params, totals)
+    for e in r["edges"]:
+        d = np.linalg.norm(center(scene[2][r["keyframes"][e.kf_id][0]])
+                           - center(scene[2][r["keyframes"][e.loop_kf_id][0]]))
+        gate(d < 2.0, f"(b): false fusion {e.kf_id}->{e.loop_kf_id}, "
+                      f"{d:.1f} m apart")
+    gate(not r["edges"], f"(b): {len(r['edges'])} aliased loops accepted")
+    # (c) the straight self-similar corridor: no revisit
+    scene = render(scenes.render_textured_stereo_sequence,
+                   scenes.forward_motion_poses(80, step=0.5), device=dev)
+    r = scenario_run("(c) corridor", scene, every_frame, counters, dev,
+                     params, totals)
+    gate(not r["edges"], f"(c): {len(r['edges'])} loops on the corridor")
+    # (d) PlaceNet's candidates on the 96-frame circuit at the strong gate
+    poses = scenes.forward_motion_poses(96, step=0.35,
+                                        yaw_rate=2 * np.pi / 88)
+    lefts, _, gt = render(scenes.render_arena_stereo_sequence, poses,
+                          **arena)
+    embs = torch.stack([place_net.embed_image(params, torch.from_numpy(
+        l).to(dev)) for l in lefts]).cpu().numpy()
+    cen = np.stack([center(p) for p in gt])[:, [0, 2]]
+    yaws = np.array([np.arctan2(-p[2, 0], p[2, 2]) for p in gt])
+    prec, rec, fired, have = candidate_pr(
+        embs, cen, yaws, PLACENET_LOOP_GATES["potential_loop_strong_threshold"],
+        PLACENET_LOOP_GATES["keyframes_to_skip_in_candidate_search"])
+    print(f"phase 20 (d) PlaceNet on the 96-frame circuit at the strong "
+          f"gate: precision {prec:.3f}, recall {rec:.3f} ({fired} fired, "
+          f"{have} frames with a true revisit)")
+    gate(have > 0 and prec >= 0.7 and rec >= 0.7,
+         f"(d): precision {prec:.3f}, recall {rec:.3f} (>= 0.7 each)")
+    # (e) MobileNet-V2 (seeded) at the reference's own gates
+    cfg = SlamConfig(num_features=250, num_features_needed_for_keyframe=1000,
+                     keyframes_to_skip_in_candidate_search=15,
+                     potential_loop_strong_threshold=0.95,
+                     potential_loop_weak_threshold=0.92,
+                     max_num_weak_threshold=3,
+                     min_num_acceptable_keypoint_match=10, lk_max_iters=12,
+                     pose_rounds=3, pose_iters_per_round=6, ba_lm_iters=6)
+    scene = render(scenes.render_arena_stereo_sequence,
+                   scenes.forward_motion_poses(40, step=0.5,
+                                               yaw_rate=2 * np.pi / 40),
+                   **arena)
+    r = scenario_run("(e) MobileNet-V2", scene, cfg, counters, dev,
+                     mobilenet_v2.init_params(seed=0, device=dev), totals)
+    finite = all(np.isfinite(p).all() for _, p in r["keyframes"].values())
+    gate(len(r["keyframes"]) >= 40 - 5 and finite and not r["edges"],
+         f"(e): {len(r['keyframes'])} keyframes, finite {finite}, "
+         f"{len(r['edges'])} loops")
+    # (f) the hard scene: the renderer, then the loop path, held
+    poses = scenes.forward_motion_poses(3, step=0.35,
+                                        yaw_rate=2 * np.pi / 112)
+    hard = scenes.render_hard_arena_stereo_sequence(poses, **arena)[0]
+    clean = scenes.render_arena_stereo_sequence(poses, **arena)[0]
+    l0, l1, c0 = (x.cpu().numpy() for x in (hard[0], hard[1], clean[0]))
+    d_clean = float(np.mean(np.abs(l0 - c0)))
+    moved = float(np.mean(np.abs(l1 - l0) > 25))
+    print(f"phase 20 (f) hard renderer: mean |hard - clean| {d_clean:.2f}, "
+          f"{100 * moved:.2f}% of pixels change > 25 between frames 0 and "
+          f"1, values in [{l0.min():.2f}, {l0.max():.2f}]")
+    gate(d_clean > 5.0 and moved > 0.01 and bool(np.isfinite(l0).all())
+         and l0.min() >= 0.0 and l0.max() <= 255.0,
+         f"(f): the hard renderer: {d_clean}, {moved}")
+    T = 100
+    scene = render(scenes.render_hard_arena_stereo_sequence,
+                   scenes.forward_motion_poses(
+                       T, step=0.35, yaw_rate=2 * np.pi / (T - 8)), **arena)
+    # chunked, then eager with every kernel A and B launch recorded (a
+    # graph replay launches without Python, so only the eager run can
+    # record them); the reference's gates on both
+    records, dist = [], 0.35 * T
+    for chunked in (True, False):
+        how = "chunked" if chunked else "eager"
+        r = scenario_run(f"(f) hard scene, {how}", scene, loop_config(),
+                         counters, dev, params, totals, chunked=chunked,
+                         records=None if chunked else records, pgo=True)
+        ok_share = float((r["n_in"][1:] > 10).mean())
+        gate(ok_share > 0.9,
+             f"(f) {how}: inliers > 10 on {ok_share:.3f} of frames")
+        gate(bool(np.isfinite(r["ate_pgo"])) and r["ate_pgo"] < 0.03 * dist,
+             f"(f) {how}: ATE after PGO {r['ate_pgo']} over {dist} m")
+    a_err, b_err, failed = hold_recorded(records, "phase 20 (f) hard scene",
+                                         r["vo"].cfg.num_features_tracking_bad)
+    missed += failed
+    # (g) the long corridor with the default config, chunked odometry
+    T = 150
+    lefts, rights, gt = render(scenes.render_textured_stereo_sequence,
+                               scenes.forward_motion_poses(T, step=0.4),
+                               device=dev)
+    vo = ScanVisualOdometry(SlamConfig(), ArraySequenceDataset(
+        lefts, rights, list(scenes.make_stereo_rig())), device=dev)
+    vo.initialize()
+    for mod in counters.values():
+        mod.launch_count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vo.run()
+    dt = time.perf_counter() - t0
+    launches = {k: m.launch_count for k, m in counters.items()}
+    for k, n in launches.items():
+        totals[k] = totals.get(k, 0) + n
+    traj = vo.trajectory()
+    n_in = np.array([int(f.n_inliers) for _, f in vo.outputs])
+    err = ate_rmse(traj, dict(enumerate(gt)), align=False)
+    dist = 0.4 * T
+    print(f"phase 20 (g) long corridor: {T} frames in {dt:.3f} s = "
+          f"{T / dt:.2f} fps (ScanVisualOdometry, SlamConfig()), "
+          f"{len(traj)} keyframes, inliers >= {n_in[1:].min()}, drift "
+          f"{err:.4f} m over {dist:.0f} m ({100 * err / dist:.3f}%); "
+          f"launches {launches}")
+    gate(n_in[1:].min() > 30 and len(traj) > 10 and err / dist < 0.02,
+         f"(g): inliers >= {n_in[1:].min()}, {len(traj)} keyframes, drift "
+         f"{err / dist:.4f}")
+    gate(totals["lk_pyramid"] > 0 and totals["pose_lm"] > 0,
+         f"kernels A and B launched {totals}")
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s; kernel A and B "
+          f"launches {totals['lk_pyramid']}, {totals['pose_lm']}; "
+          + ("every gate met" if not missed else "MISSED: "
+             + "; ".join(missed)))
+    return totals, a_err, b_err, missed
+
+
+def training_phase(tmp: str, dev, shipped) -> list:
+    """Phase 21: `apps.train_place_net` at its defaults on the card into a
+    temporary --out: the loss finite and its last LOSS_WINDOW steps' mean
+    under its first's; the new weights pass the reference's held-out
+    world test (tests/test_place_net.py:49-85); the validation table beside
+    the shipped weights' on the bench world; the shipped file unchanged.
+    Returns the gates missed."""
+    import hashlib
+
+    import numpy as np
+    from stereovision_slam_torch.apps import train_place_net as tp
+    from stereovision_slam_torch.models import place_net
+
+    def digest() -> str:
+        with open(place_net.WEIGHTS_PATH, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    t_phase = time.perf_counter()
+    before = digest()
+    out = os.path.join(tmp, "place_net_trained.npz")
+    s = tp.run(tp.parse_args(["--out", out, "--device", str(dev)]))
+    losses = s["losses"]
+    first = float(np.mean(losses[:LOSS_WINDOW]))
+    last = float(np.mean(losses[-LOSS_WINDOW:]))
+    print(f"phase 21: {len(losses)} steps in {s['train_s']:.2f} s = "
+          f"{s['steps_per_s']:.1f} steps/s (batch 192 pairs, float32, TF32 "
+          f"off), dataset rendered in {s['render_s']:.2f} s; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, mean of the first "
+          f"{LOSS_WINDOW} steps {first:.4f}, of the last {last:.4f}")
+    new = place_net.load_params(out, device=dev)
+    missed = []
+    heldout = {}
+    for name, params in (("trained", new), ("shipped", shipped)):
+        pos, neg = tp.heldout_discrimination(params, dev)
+        heldout[name] = (pos, neg)
+        print(f"phase 21: held-out world (phase 57.3), {name} weights: "
+              f"positives {min(pos):.3f}-{max(pos):.3f} (mean "
+              f"{np.mean(pos):.3f}), negatives up to {max(neg):.3f}")
+    shipped_table = tp.validate(shipped, dev, phases=(0.0,))
+    print("phase 21: the bench world (phase 0.0), shipped weights:")
+    tp.print_table(shipped_table, print)
+    print("phase 21: the held-out circuits, the new weights:")
+    tp.print_table(s["table"], print)
+    pos, neg = heldout["trained"]
+    if not (np.isfinite(losses).all() and last < first):
+        missed.append(f"phase 21: the loss {first} -> {last}, finite "
+                      f"{bool(np.isfinite(losses).all())}")
+    if not (min(pos) > max(neg) + 0.1 and np.mean(pos) > 0.8):
+        missed.append(f"phase 21: the trained weights do not discriminate "
+                      f"the held-out world: {pos}, {neg}")
+    if digest() != before:
+        missed.append("phase 21: the shipped weights file changed")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s; "
+          + ("every gate met" if not missed else "MISSED: "
+             + "; ".join(missed)))
+    return missed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", type=int, default=0,
@@ -3361,6 +3702,14 @@ def main() -> int:
             streams, rig, counters, dev)
         missed += failed
         missed += dense_mesh_phase(dense_keep, tmp, dev)
+        # 20. the reference's loop-scene scenarios, rendered on the card
+        by_path["scenarios"], a_err, b_err, failed = scenario_phase(
+            counters, dev, params)
+        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], a_err)
+        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_err)
+        missed += failed
+        # 21. PlaceNet's training on the card
+        missed += training_phase(tmp, dev, params)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if args.profile:
@@ -3376,12 +3725,12 @@ def main() -> int:
 
     # launches: kernels A and B on the loop path over both scenes (the
     # main path), on the command line's classic and fused runs and on this
-    # slice's MobileNet and FAST paths, kernel
+    # MobileNet and FAST paths and on the scenarios, kernel
     # C and the gather on the serving run with the per-level LK, kernel D
     # on the sharded BA; every path's counts beside them
     ab_paths = ("loop_circuit", "loop_circuit_long", "cli_classic",
                 "cli_fused", "mnv2_loop", "mnv2_cli_classic", "fast_slice",
-                "fast_serving", "serving_mesh")
+                "fast_serving", "serving_mesh", "scenarios")
     main_path = {"lk_pyramid": ab_paths, "pose_lm": ab_paths,
                  "lk_iterate": ("serving_pallas",),
                  "gather_windows": ("serving_pallas",),
@@ -3396,7 +3745,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(smi)
-    # the bench's gates of phases 13 to 15, after everything else is
+    # the bench's gates of phases 13 to 21, after everything else is
     # reported
     check(not missed, "; ".join(missed))
     print(json.dumps({"ok": True, "device": {

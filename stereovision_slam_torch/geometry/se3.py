@@ -32,6 +32,11 @@ def so3_hat(w: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def so3_vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of so3_hat: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _rot_coeffs(w: torch.Tensor):
     """(a, b, c) = (sin t / t, (1 - cos t) / t^2, (t - sin t) / t^3), with
     polynomial branches below t^2 = 1e-8."""
@@ -128,6 +133,22 @@ def se3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
 
 def se3_from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([R, t[..., None]], dim=-1)
+
+
+def se3_R(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, :3]
+
+
+def se3_t(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, 3]
+
+
+def se3_matrix(T: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 4) -> homogeneous (..., 4, 4)."""
+    bottom = torch.zeros(T.shape[:-2] + (1, 4), dtype=T.dtype,
+                         device=T.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([T, bottom], dim=-2)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:

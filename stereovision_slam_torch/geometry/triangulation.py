@@ -34,3 +34,21 @@ def triangulate(poses: torch.Tensor, points: torch.Tensor,
     ok = ok & (s[:, 2] > 1e-6 * torch.clamp(s[:, 0], min=1e-20))
     ok = ok & (torch.abs(wh) >= 1e-12)
     return xyz, ok
+
+
+def triangulate_stereo(baseline: torch.Tensor, points_l: torch.Tensor,
+                       points_r: torch.Tensor, sv_ratio_thresh: float = 1e-2):
+    """The two-view case of a rectified rig: `baseline` (2,) the x-offsets
+    of the left and right cameras in the rig frame (each extrinsic's
+    translation column), `points_l` / `points_r` (N, 2) normalized plane
+    coordinates. Builds the two x-translated poses and dispatches to
+    `triangulate`."""
+    baseline = torch.as_tensor(baseline, dtype=points_l.dtype,
+                               device=points_l.device)
+    poses = torch.zeros((2, 3, 4), dtype=points_l.dtype,
+                        device=points_l.device)
+    poses[:, :, :3] = torch.eye(3, dtype=points_l.dtype,
+                                device=points_l.device)
+    poses[:, 0, 3] = baseline
+    return triangulate(poses, torch.stack([points_l, points_r], dim=1),
+                       sv_ratio_thresh)

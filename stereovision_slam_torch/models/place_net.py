@@ -11,19 +11,25 @@ Here each layer's input activations and weights are rounded to bf16 and
 back, and the convolution runs in float32 (`F.conv2d`): a product of two
 bf16 values is exact in float32, so only the order of the sums differs. It
 also makes cuDNN's TF32 mode harmless, since a bf16 value is exact in TF32.
+Training passes `compute_dtype=torch.float32`, which skips the rounding, so
+gradients flow as through the reference's float32 training forward.
 Weights are kept as OIHW (`convert.place_net_params` turns the reference's
-HWIO arrays around once).
+HWIO arrays around once); `init_params` draws the reference's seeded
+network and `save_params` writes the reference's npz layout
+(`apps/train_place_net.py` trains the weights).
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from stereovision_slam_torch.device import resolve_device
 from stereovision_slam_torch.ops import image as imops
+from stereovision_slam_torch.ops import prng
 
 EMBED_DIM = 1280         # loop database layout
 PROJ_DIM = 256           # learned embedding width (the rest is zero)
@@ -58,11 +64,17 @@ def _same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
-def forward(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """(N, IN_H, IN_W) preprocessed inputs -> (N, PROJ_DIM) L2-normalized."""
+def forward(params: dict, x: torch.Tensor,
+            compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """(N, IN_H, IN_W) preprocessed inputs -> (N, PROJ_DIM) L2-normalized.
+    `compute_dtype=torch.float32` skips the bf16 rounding of activations
+    and weights (training)."""
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"place_net: compute_dtype {compute_dtype}")
+    rnd = _bf16 if compute_dtype == torch.bfloat16 else (lambda t: t)
     h = x[:, None]
     for conv, (_, k, stride) in zip(params["convs"], CONVS):
-        h = F.conv2d(_same_pad(_bf16(h), k, stride), _bf16(conv["w"]),
+        h = F.conv2d(_same_pad(rnd(h), k, stride), rnd(conv["w"]),
                      stride=stride)
         h = torch.relu(h + conv["b"][None, :, None, None])
     N, C, Hc, Wc = h.shape
@@ -84,10 +96,48 @@ def embed_image(params: dict, img_gray: torch.Tensor) -> torch.Tensor:
     return F.pad(v, (0, EMBED_DIM - PROJ_DIM))
 
 
+def init_params(key=None, seed: int = 0, device="cuda") -> dict:
+    """The reference's seeded network for the same seed (or key word
+    pair): He-normal HWIO convolutions and a projection scaled by
+    sqrt(1 / features), each from the next of 16 split keys in order, zero
+    biases; convolutions turned to OIHW."""
+    dev = resolve_device(device)
+    keys = iter(prng.split(seed if key is None else key, 16))
+
+    def draw(shape, scale):
+        w = prng.normal(next(keys), shape) * float(np.float32(scale))
+        return w.to(dev)
+
+    convs, cin = [], 1
+    for cout, k, _ in CONVS:
+        w = draw((k, k, cin, cout), np.sqrt(2.0 / (k * k * cin)))
+        convs.append({"w": w.permute(3, 2, 0, 1).contiguous(),
+                      "b": torch.zeros(cout, device=dev)})
+        cin = cout
+    feat = POOL_W * cin
+    return {"convs": convs,
+            "proj": {"w": draw((feat, PROJ_DIM), np.sqrt(1.0 / feat)),
+                     "b": torch.zeros(PROJ_DIM, device=dev)}}
+
+
+def save_params(params: dict, path: str) -> None:
+    """Writes `params` as the reference's npz (conv{i}_w HWIO, conv{i}_b,
+    proj_w, proj_b, float32, compressed), which either package loads."""
+    def arr(t):
+        return t.detach().to(torch.float32).cpu().numpy()
+
+    flat = {}
+    for i, c in enumerate(params["convs"]):
+        flat[f"conv{i}_w"] = arr(c["w"].permute(2, 3, 1, 0))
+        flat[f"conv{i}_b"] = arr(c["b"])
+    flat["proj_w"] = arr(params["proj"]["w"])
+    flat["proj_b"] = arr(params["proj"]["b"])
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **flat)
+
+
 def load_params(path: str = WEIGHTS_PATH, device="cuda") -> dict:
     """The weights of an npz file in the reference's layout, on `device`."""
-    import numpy as np
-
     from stereovision_slam_torch import convert
     with np.load(path) as data:
         return convert.place_net_params(dict(data), resolve_device(device))

@@ -102,6 +102,13 @@ def build_pyramid_batched(imgs: torch.Tensor,
     return build_pyramid(imgs, num_levels)
 
 
+def resize_half(img: torch.Tensor) -> torch.Tensor:
+    """2x downscale by the mean over 2x2 blocks (the reference halves KITTI
+    frames so); an odd last row or column is dropped."""
+    H2, W2 = img.shape[0] // 2, img.shape[1] // 2
+    return img[:H2 * 2, :W2 * 2].reshape(H2, 2, W2, 2).mean(dim=(1, 3))
+
+
 _SCHARR_D = np.array([-1.0, 0.0, 1.0], np.float32)
 _SCHARR_S = np.array([3.0, 10.0, 3.0], np.float32) / 32.0
 

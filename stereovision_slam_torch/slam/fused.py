@@ -519,6 +519,11 @@ class FusedVisualOdometry:
                 landmarks[gid] = ms.lm_pos[s]
         return keyframes, landmarks, self.outputs
 
+    def trajectory(self) -> dict[int, np.ndarray]:
+        """{frame_id: pose} of the drained keyframes."""
+        keyframes, _, _ = self.drain()
+        return {fid: pose for fid, pose in keyframes.values()}
+
 
 
 def build_scan_chunk(unroll=False, **static) -> dict:

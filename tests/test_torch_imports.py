@@ -40,3 +40,26 @@ def test_place_net_weights_are_the_ports_own_copy():
     ref = os.path.join(REPO, "stereovision_slam_tpu", "models", "weights",
                        "place_net.npz")
     assert filecmp.cmp(path, ref, shallow=False)
+
+
+SCENES_AND_TRAINING = ("stereovision_slam_torch.scenes",
+           "stereovision_slam_torch.apps.train_place_net",
+           "stereovision_slam_torch.models.place_net")
+
+
+def test_scenes_and_training_tool_import_neither_jax_nor_the_jax_package():
+    """The renderers of every bench scene and PlaceNet's training tool
+    (torch and numpy only: no optax, no tests.synthetic), each in a fresh
+    process; the package walk above includes them."""
+    probe = ("import importlib, json, sys\n"
+             f"for name in {SCENES_AND_TRAINING!r}:\n"
+             "    importlib.import_module(name)\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'optax', 'stereovision_slam_tpu', 'tests', "
+             "'synthetic', 'benchmarks'))\n"
+             "print(json.dumps(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -7,7 +7,7 @@ Cholesky pose solve), so the comparison is semantic: the same keyframe
 frames, per-frame inlier counts within 3 of each other (a point at a
 search-window margin can fail one tracker and not the other), keyframe
 poses within 2e-3 and ATEs within 2e-3 m of each other (measured 1.1e-4 and
-1.1e-5).
+1.1e-5). `trajectory()` is held to the reference's the same way.
 """
 
 import dataclasses
@@ -50,20 +50,27 @@ def scene():
     return np.array(lefts), np.array(rights), rig, np.array(poses)
 
 
-def test_fused_slice_matches_reference(scene):
-    lefts, rights, rig, poses = scene
+@pytest.fixture(scope="module")
+def runs(scene):
+    """The reference's and the port's fused pipelines over the scene."""
+    lefts, rights, rig, _ = scene
     cfg = small_config()
     ref = JFused(cfg, JDataset(lefts, rights, list(rig)))
     ref.initialize()
     ref.run()
-    kf_j, lm_j, out_j = ref.drain()
-
     port = FusedVisualOdometry(
         convert.slam_config(cfg),
         ArraySequenceDataset(lefts, rights, [convert.camera(c) for c in rig]),
         device="cpu")
     port.initialize()
     port.run()
+    return ref, port
+
+
+def test_fused_slice_matches_reference(scene, runs):
+    poses = scene[3]
+    ref, port = runs
+    kf_j, lm_j, out_j = ref.drain()
     kf_t, lm_t, out_t = port.drain()
 
     est_j = {fid: p for fid, p in kf_j.values()}
@@ -90,6 +97,21 @@ def test_fused_slice_matches_reference(scene):
     for f in ("kf_pose", "kf_rel"):
         np.testing.assert_allclose(getattr(port.arc, f).numpy(),
                                    getattr(arc_j, f).numpy(), atol=2e-3)
+
+
+def test_trajectory_matches_reference(scene, runs):
+    """`trajectory()`, {frame_id: pose} of the drained keyframes, against
+    the reference's, with the slice's tolerances."""
+    ref, port = runs
+    tj, tt = ref.trajectory(), port.trajectory()
+    assert sorted(tt) == sorted(tj) and len(tt) >= 2
+    for fid in tj:
+        np.testing.assert_allclose(tt[fid], tj[fid], atol=2e-3)
+    gt = {i: p for i, p in enumerate(scene[3])}
+    assert abs(ate_rmse(tt, gt, align=False)
+               - ate_rmse(tj, gt, align=False)) < 2e-3
+    kf_t, _, _ = port.drain()
+    assert tt.keys() == {f for f, _ in kf_t.values()}
 
 
 def test_config_copy_reads_the_same_yaml():
