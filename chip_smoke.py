@@ -146,6 +146,14 @@ Phases, in order; any failure exits non-zero:
      on the card into a temporary file: a falling, finite loss, the new
      weights through the reference's held-out world test, the validation
      table beside the shipped weights', the shipped file unchanged.
+ 22. the per-rank route of the distributed backend (a mesh of one device
+     per rank in one process, the reference's layout over the chips of a
+     host; over several cards in `tests/torch_multicard.py`) with its four
+     ranks on cuda:0: the sharded BA at (dp 2, mp 2) on phase 11's window,
+     "ring" (every kernel D call held to its plain version bit for bit)
+     and "xla", within SHARD_RING_TOL of the tensor-axis route at the same
+     split; the sharded PGO over the four ranks on phase 12's graph within
+     PGO_SHARD_TOL of the single solve; wall times beside phases 11-12.
 
 Phases 2, 3 and 6 also check the sizes the kernels once refused (kernel
 A's windows 21 and 31, kernel B at 2048 points, kernel C's patch 21) and
@@ -243,6 +251,9 @@ PGO_SHARD_TOL = 5e-2     # tests/test_sharded_pgo.py:30-31
 # and then the processes' partials, where one process adds four ranks in
 # turn (measured 5.9e-5 on the poses, 1.4e-3 m at 37 m, H100)
 DIST_PROCS, DIST_SEED, DIST_RING_REPS, DIST_TIMEOUT_S = 2, 19, 20, 300
+# phase 22: the per-rank route (one device per rank in one process) with
+# its ranks on the one card
+PER_RANK_RANKS = 4
 # sizes the kernels once refused (kernel A's window above 15, kernel C's
 # patch above 11, kernel B's points above 1024), checked in phases 2, 3, 6
 WIDE_WINS, WIDE_R, WIDE_F = (21, 31), 21, 2048
@@ -3072,15 +3083,16 @@ def dist_phase(ba: dict, pgo: dict, kernel_d: dict, dev):
     return sum(launches), timing, missed
 
 
-def serving_mesh_phase(streams, rig, counters, dev):
+def serving_mesh_phase(streams, rig, counters, dev, mesh=None,
+                       label: str = "phase 19 (b)"):
     """Phase 19 (b): phase 7's four streams under `serving_config()` with
-    `mesh=make_ba_mesh(devices=["cuda:0"] * 2, dp=2, mp=1)`: two streams a
-    rank, the per-frame step (a mesh takes no kf_stagger), each rank's
-    sub-batch stepped in turn; phase 7's per-stream gates and the launch
-    counts. Then the same streams unsharded (mesh=None, the per-frame
-    step): streams never interact, so the mesh run's outputs and keyframe
-    trajectories must equal it bit for bit. Returns (launches, the gates
-    missed)."""
+    `mesh` (by default `make_ba_mesh(devices=["cuda:0"] * 2, dp=2, mp=1)`:
+    two streams a rank), the per-frame step (a mesh takes no kf_stagger),
+    each rank's sub-batch stepped in turn on its device; phase 7's
+    per-stream gates and the launch counts. Then the same streams
+    unsharded on `dev` (mesh=None, the per-frame step): streams never
+    interact, so the mesh run's outputs and keyframe trajectories must
+    equal it bit for bit. Returns (launches, the gates missed)."""
     import numpy as np
     from stereovision_slam_torch.io.dataset import ArraySequenceDataset
     from stereovision_slam_torch.parallel.mesh import make_ba_mesh
@@ -3094,7 +3106,9 @@ def serving_mesh_phase(streams, rig, counters, dev):
             device=dev)
 
     missed = []
-    vo = server(make_ba_mesh(devices=["cuda:0"] * 2, dp=2, mp=1))
+    if mesh is None:
+        mesh = make_ba_mesh(devices=["cuda:0"] * 2, dp=2, mp=1)
+    vo = server(mesh)
     for mod in counters.values():
         mod.launch_count = 0
     vo.initialize()
@@ -3103,7 +3117,8 @@ def serving_mesh_phase(streams, rig, counters, dev):
     steps = vo._step_idx
     outputs = vo.outputs
     inserted = sum(int(o.kf_inserted) for out in outputs for _, o in out)
-    print(f"phase 19 (b): serving over the mesh (2 ranks on cuda:0, "
+    print(f"{label}: serving over the mesh ({mesh.size} ranks on "
+          f"{', '.join(sorted({str(d) for d in mesh.devices}))}, "
           f"{len(vo.shards[0].streams)} streams each, per-frame step): "
           f"{SERVE_B} streams x {steps} frames in {dt:.3f} s = "
           f"{SERVE_B * steps / dt:.2f} frames/s aggregate, {inserted} "
@@ -3134,17 +3149,17 @@ def serving_mesh_phase(streams, rig, counters, dev):
               f"{gap.max():.3e}, first at frame {first}")
         if not (len(traj) >= 2 and ate < SERVE_ATE_PER_M * path
                 and len(out) == steps and bool(np.all(n_in > 10))):
-            missed.append(f"phase 19 (b): stream {b}: {len(traj)} keyframes,"
+            missed.append(f"{label}: stream {b}: {len(traj)} keyframes,"
                           f" ATE {ate:.3f} m, n_inliers {n_in.min()}")
         if not same:
-            missed.append(f"phase 19 (b): stream {b} over the mesh is not "
+            missed.append(f"{label}: stream {b} over the mesh is not "
                           f"the unsharded run (pose gap {gap.max():.3e})")
     # per stream and step: two LK calls and one pose solve; one LK call per
     # stream's stereo initialization and per keyframe step
     want_a = SERVE_B * (2 * steps + 1) + inserted
     want_b = SERVE_B * steps
     if launches["lk_pyramid"] != want_a or launches["pose_lm"] != want_b:
-        missed.append(f"phase 19 (b): kernels A, B launched "
+        missed.append(f"{label}: kernels A, B launched "
                       f"{launches['lk_pyramid']}, {launches['pose_lm']} "
                       f"times, not {want_a}, {want_b}")
     return launches, missed
@@ -3179,6 +3194,119 @@ def dense_mesh_phase(dense: dict, tmp: str, dev) -> list:
         if not same:
             missed.append(f"phase 19 (c): {name} is not phase 16's cloud")
     return missed
+
+
+@contextlib.contextmanager
+def ranks_held(records: list):
+    """While active, every call of kernel D's per-rank route
+    (`ring_all_reduce_ranks`) is compared with the plain version over the
+    ranks' payloads gathered onto the first rank's card; `records` gets
+    one dict per call. The path's own result is returned unchanged."""
+    import torch
+    from stereovision_slam_torch.parallel import ring_reduce as rr
+
+    kernel = rr.ring_all_reduce_ranks
+
+    def held(xs, axis_name, mesh_axes):
+        k = kernel(xs, axis_name, mesh_axes)
+        dev0 = xs[0].device
+        p = rr.ring_all_reduce_plain(torch.stack([x.to(dev0) for x in xs]),
+                                     axis_name, mesh_axes)
+        got = torch.stack([y.to(dev0) for y in k])
+        records.append(dict(shape=(len(xs),) + tuple(xs[0].shape),
+                            cards=len({x.device for x in xs}),
+                            equal=torch.equal(got, p),
+                            err=float((got - p).abs().max())))
+        return k
+
+    rr.ring_all_reduce_ranks = held
+    try:
+        yield
+    finally:
+        rr.ring_all_reduce_ranks = kernel
+
+
+def per_rank_phase(ba: dict, pgo: dict, counters, dev):
+    """Phase 22: the per-rank route, a mesh of one device per rank in one
+    process (the reference's layout over the chips of one host), with
+    every rank on cuda:0 (`make_ba_mesh(devices=["cuda:0"] * 4)`): the
+    sharded BA at (dp 2, mp 2) on phase 11's window, "ring" (every kernel
+    D launch held to its plain version bit for bit) and "xla", each within
+    SHARD_RING_TOL of phase 11's tensor-axis route at the same split and
+    within SHARD_SINGLE_TOL of the single-card BA; the sharded PGO over
+    the 4 ranks on phase 12's graph within PGO_SHARD_TOL of the single
+    solve. Returns (the ring run's launches, kernel D's timing on the
+    route, the gates missed)."""
+    import torch
+    from stereovision_slam_torch.parallel.mesh import make_ba_mesh
+    from stereovision_slam_torch.parallel.sharded_ba import build_sharded_ba
+    from stereovision_slam_torch.parallel.sharded_pgo import build_sharded_pgo
+    from stereovision_slam_torch.slam.backend import optimize_window
+
+    t_phase = time.perf_counter()
+    missed = []
+    m, cl, cr, K, F, L, kw = (ba[k] for k in ("m", "cl", "cr", "K", "F",
+                                              "L", "kw"))
+    mesh = make_ba_mesh(devices=[f"{dev}:0"] * PER_RANK_RANKS, dp=2, mp=2)
+    tensor_mesh = make_ba_mesh(PER_RANK_RANKS, dp=2, mp=2, device=dev)
+    ms1, _ = optimize_window(m, cl, cr, chi2_th=kw["chi2_th"],
+                             iters=kw["iters"], outlier_rounds=0,
+                             max_active_landmarks=kw["max_active_landmarks"])
+    launches, ms, records = None, {}, []
+    for impl in ("ring", "xla"):
+        run = build_sharded_ba(mesh, K, F, L, reduce_impl=impl, **kw)
+        k_t, l_t = build_sharded_ba(tensor_mesh, K, F, L, reduce_impl=impl,
+                                    **kw)(m, cl, cr)
+        for mod in counters.values():
+            mod.launch_count = 0
+        with ranks_held(records):
+            (k_r, l_r), _ = timed(lambda: run(m, cl, cr))
+        if impl == "ring":
+            launches = {k: mod.launch_count for k, mod in counters.items()}
+        _, t = timed(lambda: run(m, cl, cr))
+        ms[impl] = 1e3 * t
+        for name, k_b, l_b, tol in (
+                ("phase 11's route at (2, 2)", k_t, l_t, SHARD_RING_TOL),
+                ("the single-card BA", ms1.kf_pose, ms1.lm_pos,
+                 SHARD_SINGLE_TOL)):
+            ok, msg = ba["compare"](f"per-rank {impl} vs {name}", k_r, l_r,
+                                    k_b, l_b, tol)
+            if not ok:
+                missed.append(f"phase 22: {msg}")
+        if not (k_r.device == mesh.device and bool(torch.isfinite(k_r).all())
+                and bool(torch.isfinite(l_r).all())):
+            missed.append(f"phase 22: per-rank {impl} gave non-finite "
+                          f"values or left {mesh.device}")
+    held = all(r["equal"] for r in records)
+    n_d = launches["ring_all_reduce"]
+    print(f"phase 22: per-rank sharded BA, {PER_RANK_RANKS} ranks on "
+          f"{dev}:0 at (2, 2): launches on the ring run {launches}; "
+          f"{len(records)} kernel D calls on payloads "
+          f"{records[0]['shape'] if records else None}, bit-equal to the "
+          f"plain version: {held}; wall per call ring {ms['ring']:.1f} ms, "
+          f"xla {ms['xla']:.1f} ms (phase 11, (4, 2) as tensor axes: ring "
+          f"{ba['ms_ring']:.1f} ms, xla {ba['ms_xla']:.1f} ms)")
+    if n_d != kw["iters"]:
+        missed.append(f"phase 22: kernel D launched {n_d} times on one "
+                      f"card, not {kw['iters']}")
+    if not held or not records:
+        missed.append("phase 22: a kernel D launch of the per-rank route "
+                      "differs from its plain version")
+    g = pgo["g"]
+    pgo_mesh = make_ba_mesh(devices=[f"{dev}:0"] * PER_RANK_RANKS)
+    out, t_pgo = timed(lambda: build_sharded_pgo(pgo_mesh)(g))
+    d = float((out - pgo["out1"]).abs().max())
+    c2 = pgo["chi2"](out)
+    print(f"phase 22: per-rank sharded PGO over {PER_RANK_RANKS} ranks "
+          f"{d:.3e} from the single solve (tolerance {PGO_SHARD_TOL}), chi2 "
+          f"{c2:.4e} (single {pgo['c1']:.4e}); {t_pgo:.2f} s a solve "
+          f"(phase 12's first solves: single {pgo['s_single_first']:.2f} s, "
+          f"8 ranks as tensor axes {pgo['s_sharded_first']:.2f} s); phase "
+          f"22 {time.perf_counter() - t_phase:.1f} s")
+    if not (d <= PGO_SHARD_TOL and c2 <= pgo["c1"] * 1.05 + 1e-8):
+        missed.append(f"phase 22: per-rank PGO {d}, chi2 {c2}")
+    return launches, dict(ms_ring=ms["ring"], ms_xla=ms["xla"],
+                          pgo_s=t_pgo), missed
 
 
 def shared_cfg(**overrides):
@@ -3710,6 +3838,11 @@ def main() -> int:
         missed += failed
         # 21. PlaceNet's training on the card
         missed += training_phase(tmp, dev, params)
+        # 22. the per-rank route (the reference's single-process layout
+        # over chips) with its four ranks on the card
+        by_path["per_rank_ba"], kernels[-1]["per_rank"], failed = \
+            per_rank_phase(ba_keep, pgo_keep, counters, dev)
+        missed += failed
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if args.profile:
@@ -3734,14 +3867,16 @@ def main() -> int:
     main_path = {"lk_pyramid": ab_paths, "pose_lm": ab_paths,
                  "lk_iterate": ("serving_pallas",),
                  "gather_windows": ("serving_pallas",),
-                 "ring_all_reduce": ("sharded_ba", "sharded_ba_2proc")}
+                 "ring_all_reduce": ("sharded_ba", "sharded_ba_2proc",
+                                     "per_rank_ba")}
     for k in kernels:
         k["launches"] = sum(by_path[p][k["name"]] for p in main_path[k["name"]])
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "cold_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_cold_ms",
-            "streams_4x3", "wide", "cross_process", "launches_by_path")
+            "streams_4x3", "wide", "cross_process", "per_rank",
+            "launches_by_path")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(smi)

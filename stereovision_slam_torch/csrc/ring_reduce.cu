@@ -1,7 +1,10 @@
 // Kernel D: all-reduce along one axis of a rank mesh, one launch for all the
-// rings of the mesh: every rank of the mesh on one card, or the ranks of
-// several processes, each process launching once over a table whose
-// entries for the other processes' inputs are peer pointers (CUDA IPC).
+// rings of the mesh: every rank of the mesh on one card; or ranks on
+// several cards of one process, each card launching once over a table whose
+// entries for the other cards' inputs point into their memory (read over
+// NVLink with peer access); or the ranks of several processes, each process
+// launching once over a table whose entries for the other processes' inputs
+// are peer pointers (CUDA IPC).
 //
 // Replaces the TPU kernel stereovision_slam_tpu/parallel/ring_reduce.py
 // `_ring_kernel`: a unidirectional ring reduce-scatter (n - 1 hops) then
@@ -147,4 +150,23 @@ extern "C" int ring_reduce_launch(const unsigned long long* x_ptrs,
     ring_reduce_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         t, n, ring_stride, chunk4);
   return (int)cudaGetLastError();
+}
+
+// Let `device` read `peer`'s memory (kernel D across cards reads its peers'
+// inputs in place). "Already enabled" is success. The caller's current
+// device is restored.
+extern "C" int ring_reduce_enable_peer(int device, int peer) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaSetDevice(device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();   // clear it: it is not a failure here
+      e = cudaSuccess;
+    }
+  }
+  const cudaError_t r = cudaSetDevice(prev);
+  return (int)(e != cudaSuccess ? e : r);
 }

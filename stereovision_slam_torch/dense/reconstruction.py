@@ -30,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from stereovision_slam_torch.device import resolve_device
+from stereovision_slam_torch.device import on_device, resolve_device
 from stereovision_slam_torch.geometry import se3
 from stereovision_slam_torch.io import pcd
 from stereovision_slam_torch.ops.sor import statistical_outlier_removal
@@ -257,10 +257,12 @@ class DenseReconstruction:
             rights = np.stack([a[1] for a, _ in chunk] + [zero] * pad)
             T_cws = np.stack([np.asarray(T, np.float32) for _, T in chunk]
                              + [ident] * pad)
-            parts = [self._points(lefts[sl], rights[sl], T_cws[sl], dev)
-                     for sl, dev in ((slice(r * per_device_batch,
-                                            (r + 1) * per_device_batch), d)
-                                     for r, d in enumerate(mesh.devices))]
+            parts = []
+            for r, dev in enumerate(mesh.devices):
+                sl = slice(r * per_device_batch, (r + 1) * per_device_batch)
+                with on_device(dev):
+                    parts.append(self._points(lefts[sl], rights[sl],
+                                              T_cws[sl], dev))
             for b, (arrs, _) in enumerate(chunk):
                 pts, ok = parts[b // per_device_batch]
                 r = b % per_device_batch

@@ -6,9 +6,12 @@ under `stereovision_slam_torch/_build/` (listed in .gitignore), named by a
 hash of the source so an edited source rebuilds, and loaded with ctypes.
 `build_all()` starts one nvcc per source at once and waits for all of them.
 
-Kernels launch on PyTorch's current stream; every C entry point returns the
-`cudaGetLastError()` after its launch, and `check()` raises on a non-zero
-code. Nothing here runs at import time.
+Kernels launch on PyTorch's current stream of their tensors' card, with
+that card made the CUDA runtime's current device for the call (`launch`):
+a C entry point launches on the current device, and kernel A's opt-in to
+more shared memory holds for that device only. Every C entry point
+returns the `cudaGetLastError()` after its launch, and `check()` raises on
+a non-zero code. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -100,6 +103,11 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
-def stream_handle(t) -> int:
+def launch(fn, what: str, like, *args) -> None:
+    """Call the C entry point `fn(*args, stream)` with `like`'s card the
+    current device and PyTorch's current stream of that card as the last
+    argument; raise on a launch error."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    with torch.cuda.device(like.device):
+        code = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+    check(code, what)

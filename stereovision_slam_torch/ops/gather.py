@@ -51,7 +51,7 @@ def gather_windows(imgs, group, cy, cx, P: int) -> torch.Tensor:
     fn = _cuda.function("gather_windows", "gather_windows_launch", _ARGTYPES)
     global launch_count
     launch_count += 1
-    code = fn(imgs.data_ptr(), group.data_ptr(), cy.data_ptr(), cx.data_ptr(),
-              out.data_ptr(), N, H, W, P, _cuda.stream_handle(imgs))
-    _cuda.check(code, "gather_windows")
+    _cuda.launch(fn, "gather_windows", imgs, imgs.data_ptr(),
+                 group.data_ptr(), cy.data_ptr(), cx.data_ptr(),
+                 out.data_ptr(), N, H, W, P)
     return out

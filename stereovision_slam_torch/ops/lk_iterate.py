@@ -154,7 +154,6 @@ def lk_iterate(win, tmpl, gx, gy, coef, flags, guesses, corner, *, S: int,
     fn = _cuda.function("lk_iterate", "lk_iterate_launch", _ARGTYPES)
     global launch_count
     launch_count += 1
-    code = fn(*(t.data_ptr() for t in args), out.data_ptr(), N, S, P,
-              max_iters, W, H, float(eps * eps), _cuda.stream_handle(win))
-    _cuda.check(code, "lk_iterate")
+    _cuda.launch(fn, "lk_iterate", win, *(t.data_ptr() for t in args),
+                 out.data_ptr(), N, S, P, max_iters, W, H, float(eps * eps))
     return out

@@ -369,12 +369,12 @@ def lk_pyramid(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks, *,
     global launch_count
     launch_count += 1
     base = ptrs.buffer_info()[0]
-    code = fn(base, base + 8 * L, dims.buffer_info()[0], L,
-              pts_c.data_ptr(), init_c.data_ptr(), masks_c.data_ptr(),
-              uv.data_ptr(), status.data_ptr(), rows.data_ptr(), n, N, pad,
-              win_size, max_iters, 0.5 ** (L - 1), float(eps * eps),
-              float(min_eig_threshold), _cuda.stream_handle(pts))
-    _cuda.check(code, "lk_pyramid")
+    _cuda.launch(fn, "lk_pyramid", pts, base, base + 8 * L,
+                 dims.buffer_info()[0], L, pts_c.data_ptr(),
+                 init_c.data_ptr(), masks_c.data_ptr(), uv.data_ptr(),
+                 status.data_ptr(), rows.data_ptr(), n, N, pad, win_size,
+                 max_iters, 0.5 ** (L - 1), float(eps * eps),
+                 float(min_eig_threshold))
     return uv, status, rows
 
 

@@ -303,10 +303,9 @@ def pose_lm(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *, chi2_th: float,
     fn = _cuda.function("pose_lm", "pose_lm_launch", _ARGTYPES)
     global launch_count
     launch_count += 1
-    code = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in out),
-              *tr, B, F, S, rounds, iters, float(chi2_th),
-              _cuda.stream_handle(pts))
-    _cuda.check(code, "pose_lm")
+    _cuda.launch(fn, "pose_lm", pts, *(t.data_ptr() for t in args),
+                 *(t.data_ptr() for t in out), *tr, B, F, S, rounds, iters,
+                 float(chi2_th))
     return out
 
 

@@ -9,10 +9,13 @@ for axis indices (i, j), the reference's row-major order. Three layouts:
     sum over that tensor axis or one launch of kernel D over it
     (`parallel/ring_reduce.py`). That is the layout the reference validates
     on its virtual 8-device CPU mesh;
-  - one process, several devices (`devices=` lists them): the ranks of the
-    embarrassingly parallel paths (serving streams, dense keyframes) run on
-    their own device. The reducing paths (BA, PGO) refuse it: their
-    PyTorch idiom is one process per card;
+  - one process, one device per rank (`devices=` lists them; `per_rank`):
+    the reference's layout over the chips of one host. The serving streams
+    and dense keyframes run per rank on its device; the sharded BA and PGO
+    run each rank's share on its device and join the ranks with the
+    per-rank collectives below (`psum_ranks`, `gather_ranks`, kernel D
+    across the cards). The same code runs whatever the devices are, so
+    `devices=["cpu"] * 4` drives it on the CPU;
   - several processes (`initialize_multihost`, torch.distributed): process
     p owns the contiguous ranks [p c, (p + 1) c), c = size / processes,
     held as the leading tensor axes of its local blocks on its own device
@@ -35,7 +38,8 @@ from stereovision_slam_torch.device import resolve_device
 def initialize_multihost(coordinator_address: str | None = None,
                          num_processes: int | None = None,
                          process_id: int | None = None,
-                         backend: str = "gloo") -> None:
+                         backend: str | None = None,
+                         device: str | torch.device = "cuda") -> None:
     """Join this process to a torch.distributed process group (one process
     per card or host), the counterpart of `jax.distributed.initialize`.
 
@@ -43,10 +47,17 @@ def initialize_multihost(coordinator_address: str | None = None,
     "host:port" (or any torch.distributed init method with "://"); without
     it the `env://` variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)
     are read. Afterwards `make_ba_mesh` lays its ranks over every process.
-    `backend` "gloo" (the default: the reference's own multi-process test
-    runs gloo, and gloo's `all_reduce` takes CUDA tensors) or "nccl", which
-    is passed through untested: NCCL refuses two ranks on one card, and no
-    machine with two cards has run this code yet."""
+
+    The backend, unless `backend` names one:
+      - "nccl" where `device` is a card and every process of this host has
+        a card of its own (LOCAL_WORLD_SIZE, else `num_processes`, at most
+        `torch.cuda.device_count()`): the collectives run on the device,
+        the counterpart of XLA's. The process first binds
+        `cuda:LOCAL_RANK` (else `cuda:process_id`), before the group forms;
+      - "gloo" on the CPU, and for several processes on one card, which
+        NCCL refuses (gloo's `all_reduce` takes CUDA tensors and stages
+        them through the host).
+    A failed start raises; an NCCL group is never retried over gloo."""
     if num_processes is not None and num_processes <= 1:
         return
     if dist.is_initialized():
@@ -57,10 +68,32 @@ def initialize_multihost(coordinator_address: str | None = None,
         init = coordinator_address
     else:
         init = f"tcp://{coordinator_address}"
-    dist.init_process_group(backend, init_method=init,
-                            world_size=-1 if num_processes is None
-                            else num_processes,
-                            rank=-1 if process_id is None else process_id)
+    dev = resolve_device(device)
+    world = int(os.environ.get("WORLD_SIZE", -1)) if num_processes is None \
+        else int(num_processes)
+    rank = int(os.environ.get("RANK", -1)) if process_id is None \
+        else int(process_id)
+    if backend is None:
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        backend = "nccl" if dev.type == "cuda" and \
+            0 < local_world <= torch.cuda.device_count() else "gloo"
+    kw = {}
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        card = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(card)
+        kw["device_id"] = card
+    dist.init_process_group(backend, init_method=init, world_size=world,
+                            rank=rank, **kw)
+
+
+def barrier(group=None) -> None:
+    """`dist.barrier` over `group`, naming this process's card where the
+    group runs NCCL (which otherwise guesses a device from the rank)."""
+    if dist.get_backend(group) == "nccl":
+        dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier(group=group)
 
 
 def _spans_processes() -> bool:
@@ -75,12 +108,13 @@ class Mesh:
     `local_rows` / `local_cols` are the (dp, mp) index ranges of this
     process's ranks: whole dp rows when the ranks per process divide by mp,
     else a run of mp columns of one row. `device` is the device of this
-    process's first rank."""
+    process's first rank. `per_rank`: every rank runs on its own entry of
+    `devices` in this process (the per-rank route)."""
 
     axis_names = ("dp", "mp")
 
     def __init__(self, dp: int, mp: int, devices, group=None,
-                 ranks: range | None = None):
+                 ranks: range | None = None, per_rank: bool = False):
         self.shape = {"dp": int(dp), "mp": int(mp)}
         self.size = int(dp) * int(mp)
         self.devices = list(devices)
@@ -88,6 +122,7 @@ class Mesh:
             raise ValueError(f"{len(self.devices)} devices for {self.size} "
                              "ranks")
         self.group = group
+        self.per_rank = bool(per_rank)
         self.ranks = range(self.size) if ranks is None else ranks
         self.device = self.devices[self.ranks[0]]
         c, r0, mp = len(self.ranks), self.ranks.start, int(mp)
@@ -137,10 +172,6 @@ class Mesh:
         """(dp rows, mp columns) of this process's ranks."""
         return len(self.local_rows), len(self.local_cols)
 
-    @property
-    def local_devices(self) -> list[torch.device]:
-        return [self.devices[r] for r in self.ranks]
-
     def axis_index(self, name: str) -> torch.Tensor:
         """This process's indices along the axis (all of them in one
         process)."""
@@ -170,13 +201,72 @@ class Mesh:
         dist.all_reduce(full, group=self._groups[axis])
         return full
 
+    # the per-rank route's collectives: lists indexed by rank
+    def ring_of(self, r: int, axis: str | None) -> list[int]:
+        """The ranks of rank r's ring along `axis` (None: every rank), in
+        rank order."""
+        dp, mp = self.shape["dp"], self.shape["mp"]
+        if axis == "dp":
+            return [k * mp + r % mp for k in range(dp)]
+        if axis == "mp":
+            return [(r // mp) * mp + k for k in range(mp)]
+        return list(range(self.size))
+
+    def _per_ring(self, parts: list, axis: str | None, join) -> list:
+        """join(the ring's parts on its first rank's device) for every ring
+        along `axis`, with a tensor of its own on each rank's device."""
+        if len(parts) != self.size:
+            raise ValueError(f"{len(parts)} parts for {self.size} ranks")
+        out = [None] * self.size
+        for r in range(self.size):
+            if out[r] is not None:
+                continue
+            ring = self.ring_of(r, axis)
+            dev = parts[ring[0]].device
+            joined = join([parts[q].to(dev) for q in ring])
+            for q in ring:
+                out[q] = joined if q == ring[0] else joined.to(
+                    self.devices[q], copy=True)
+        return out
+
+    def psum_ranks(self, parts: list, axis: str | None = None) -> list:
+        """Per-rank tensors -> each rank's sum over its ring along `axis`:
+        the plain sum in rank order, folded on the ring's first device and
+        copied to each rank's."""
+        return self._per_ring(parts, axis, fold)
+
+    def gather_ranks(self, parts: list, axis: str) -> list:
+        """Per-rank slices -> each rank's concatenation of its ring's
+        slices along `axis` in rank order (a tiled all-gather)."""
+        return self._per_ring(parts, axis, torch.cat)
+
+    def check_rank_devices(self) -> None:
+        """The per-rank route runs every rank on the CPU or every rank on a
+        card; kernel D and the copies between ranks take nothing else."""
+        kinds = {d.type for d in self.devices}
+        if kinds not in ({"cpu"}, {"cuda"}):
+            raise ValueError(f"a per-rank mesh runs its ranks on the CPU or "
+                             f"on CUDA cards, not on {sorted(kinds)}")
+
+
+def fold(xs) -> torch.Tensor:
+    """x[0] + x[1] + ... in that order: the sum over ranks that every
+    layout takes, so that the per-rank route and the ranks as tensor axes
+    add the same numbers in the same order."""
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    return acc
+
 
 def _canonical(device) -> torch.device:
-    """The device with its index ("cuda" -> "cuda:<current>"), so that it
-    compares equal to the device of the tensors made on it."""
+    """The device as the tensors made on it report theirs ("cuda" ->
+    "cuda:<current>", "cpu:0" -> "cpu"), so that the two compare equal."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type == "cpu":
+        dev = torch.device("cpu")
     return dev
 
 
@@ -219,7 +309,7 @@ def make_ba_mesh(n_devices: int | None = None, dp: int | None = None,
         if n_devices is not None:
             devices = devices[:n_devices]
         dp, mp = _split(len(devices), dp, mp)
-        return Mesh(dp, mp, devices)
+        return Mesh(dp, mp, devices, per_rank=True)
     if n_devices is None:
         if dp is None or mp is None:
             raise ValueError("give n_devices, devices, or both dp and mp")

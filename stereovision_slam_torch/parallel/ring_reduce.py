@@ -24,6 +24,18 @@ before the launch (the peers' inputs are written) and one after it (no
 process overwrites an input a peer still reads) order the processes. On
 CPU tensors the payloads are all-gathered and `ring_all_reduce_plain`
 runs in every process. Both are bit for bit the one-process result.
+
+On a per-rank mesh over several cards of one process (`Mesh.per_rank`,
+`ring_psum_ranks`) each rank's payload lives on its own card. Each card
+makes one launch over the table of every rank's input pointer, its
+peers' read over NVLink (peer access is enabled once between every pair
+of the cards, and a pair without it raises: nothing is staged through
+the host), and writes its own ranks' outputs. CUDA events order the
+cards, with no host wait: each card's stream waits for every peer's
+stream to have written its inputs, and after the launches every stream
+waits for every peer's launch, so that no card's next write to an input
+(or reuse of its memory) overtakes a peer still reading it. Bit for bit
+the one-card launch: the table and the fold are the same.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from stereovision_slam_torch.ops import _cuda
+from stereovision_slam_torch.parallel.mesh import barrier
 
 LANES = 128
 launch_count = 0
@@ -49,6 +62,7 @@ _MAX_RANKS = 64     # csrc/ring_reduce.cu kMaxRanks
 # barriers around it). None: nothing is timed.
 trace: list | None = None
 _peer_cache: dict = {}
+_peers_enabled: set = set()
 
 
 def _ring(axis_name: str, mesh_axes) -> tuple[int, int, list[int], int]:
@@ -101,16 +115,37 @@ def _check_kernel_payload(x: torch.Tensor, N: int) -> None:
 
 def _launch(x_ptrs: list[int], out_ptrs: list[int], n: int, stride: int,
             R: int, like: torch.Tensor) -> None:
-    """One launch of kernel D over the rank table (0: no output here)."""
+    """One launch of kernel D over the rank table (0: no output here), on
+    `like`'s card and stream."""
     N = len(x_ptrs)
     ptrs = array.array("Q", x_ptrs + out_ptrs)
     fn = _cuda.function("ring_reduce", "ring_reduce_launch", _ARGTYPES)
     global launch_count
     launch_count += 1
     base = ptrs.buffer_info()[0]
-    code = fn(base, base + 8 * N, N, n, stride, R // n * LANES // 4,
-              _cuda.stream_handle(like))
-    _cuda.check(code, "ring_reduce")
+    _cuda.launch(fn, "ring_reduce", like, base, base + 8 * N, N, n, stride,
+                 R // n * LANES // 4)
+
+
+def enable_peer_access(cards) -> None:
+    """Let every card of `cards` (CUDA device indices) read every other's
+    memory, once per ordered pair; raises where the hardware cannot."""
+    cards = sorted(set(cards))
+    fn = None
+    for a in cards:
+        for b in cards:
+            if a == b or (a, b) in _peers_enabled:
+                continue
+            if not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(f"ring all-reduce: cuda:{a} cannot access "
+                                   f"cuda:{b}'s memory (no peer access), "
+                                   "and kernel D reads its peers in place")
+            if fn is None:
+                fn = _cuda.function("ring_reduce", "ring_reduce_enable_peer",
+                                    [ctypes.c_int, ctypes.c_int])
+            _cuda.check(fn(a, b), f"enabling peer access cuda:{a} -> "
+                        f"cuda:{b}")
+            _peers_enabled.add((a, b))
 
 
 def ring_all_reduce_flat(x: torch.Tensor, axis_name: str,
@@ -140,10 +175,69 @@ def ring_all_reduce_flat(x: torch.Tensor, axis_name: str,
     return out
 
 
+def ring_all_reduce_ranks(xs: list, axis_name: str,
+                          mesh_axes) -> list:
+    """All-reduce along `axis_name` of per-rank (R, 128) float32 payloads,
+    xs[r] on rank r's device (a per-rank mesh): on the CPU the plain
+    version over the stacked payloads; on the cards one launch of kernel D
+    per card (see the module's docstring). Returns the per-rank results,
+    each on its rank's device, bit for bit the one-card launch."""
+    n, stride, sizes, _ = _ring(axis_name, mesh_axes)
+    if n == 1:
+        return list(xs)
+    N = len(xs)
+    kinds = {x.device.type for x in xs}
+    _check_payload((N,) + tuple(xs[0].shape), n, sizes)
+    if any(x.shape != xs[0].shape for x in xs):
+        raise ValueError("ring all-reduce: the ranks' payloads differ in "
+                         "shape")
+    if kinds == {"cpu"}:
+        return list(ring_all_reduce_plain(torch.stack(xs), axis_name,
+                                          mesh_axes).unbind(0))
+    if kinds != {"cuda"}:
+        raise ValueError(f"ring all-reduce: unsupported devices {kinds}")
+    for x in xs:
+        _check_kernel_payload(x, N)
+    R = xs[0].shape[0]
+    first = {}                    # card -> its first rank's payload
+    for x in xs:
+        first.setdefault(x.device.index, x)
+    enable_peer_access(first)
+    streams = {c: torch.cuda.current_stream(c) for c in first}
+
+    def cross_wait():
+        """Each card's stream waits for what every other card's stream
+        has queued so far."""
+        if len(streams) > 1:
+            events = {c: s.record_event() for c, s in streams.items()}
+            for c, s in streams.items():
+                for o, e in events.items():
+                    if o != c:
+                        s.wait_event(e)
+
+    outs = [torch.empty_like(x) for x in xs]
+    x_ptrs = [x.data_ptr() for x in xs]
+    cross_wait()                  # every input written
+    for c, like in first.items():
+        _launch(x_ptrs, [o.data_ptr() if o.device.index == c else 0
+                         for o in outs], n, stride, R, like)
+    cross_wait()                  # every launch done before inputs change
+    return outs
+
+
 def _peer_bases(mesh, like: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
     """This process's exposed input buffer of `like`'s shape and every
     process's base address of its own (peers' mapped through CUDA IPC),
-    made once per mesh group, shape and device."""
+    made once per mesh group, shape and device.
+
+    A peer's handle is opened with this process's card current, not the
+    peer's (`rebuild_cuda_tensor` opens it on the card the buffer lives
+    on): the mapping then belongs to this card's context, which is the one
+    kernel D runs in. Mapped in the peer card's context, the kernel's
+    loads of it faulted (an illegal address on an H100 machine with four
+    cards), peer access or not. Peer access from this card to the peer's
+    is enabled first, and a pair without it raises."""
+    import inspect
     from torch.multiprocessing.reductions import reduce_tensor
 
     key = (id(mesh.group), tuple(like.shape), like.device)
@@ -159,6 +253,11 @@ def _peer_bases(mesh, like: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
         if q == p:
             bases.append(buf.data_ptr())
             continue
+        names = list(inspect.signature(rebuild).parameters)
+        at = names.index("storage_device")
+        if args[at] != like.device.index:
+            enable_peer_access([like.device.index, args[at]])
+        args = args[:at] + (like.device.index,) + args[at + 1:]
         try:
             t = rebuild(*args)
         except Exception as e:
@@ -177,7 +276,7 @@ def release_peer_buffers() -> None:
     groups = {key[0] for key in _peer_cache}
     _peer_cache.clear()
     if groups and dist.is_initialized():
-        dist.barrier()
+        barrier()
 
 
 def _across_processes(x: torch.Tensor, axis_name: str, mesh_axes,
@@ -208,17 +307,17 @@ def _across_processes(x: torch.Tensor, axis_name: str, mesh_axes,
                 if r in mesh.ranks else 0 for r in range(N)]
     t0 = time.perf_counter()
     torch.cuda.synchronize(x.device)
-    dist.barrier(group=mesh.group)
+    barrier(mesh.group)
     t1 = time.perf_counter()
     if trace is not None:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
+        ev[0].record(torch.cuda.current_stream(x.device))
     _launch(x_ptrs, out_ptrs, n, stride, R, x)
     if trace is not None:
-        ev[1].record()
+        ev[1].record(torch.cuda.current_stream(x.device))
     t2 = time.perf_counter()
     torch.cuda.synchronize(x.device)
-    dist.barrier(group=mesh.group)
+    barrier(mesh.group)
     t3 = time.perf_counter()
     if trace is not None:
         trace.append({"device_ms": ev[0].elapsed_time(ev[1]),
@@ -238,18 +337,9 @@ def _leaves(tree):
     raise TypeError(f"ring_psum: unsupported tree {type(tree)}")
 
 
-def ring_psum(tree, axis_name: str, mesh_axes, mesh=None):
-    """`psum` over `axis_name` of a tree whose leaves have the mesh's shape
-    as their leading axes: one ring all-reduce of the leaves flattened per
-    rank, concatenated and zero-padded to a multiple of 128 * 8 * n floats
-    (the reference's layout, so its chunk boundaries). With `mesh` over
-    processes the leaves lead with this process's `mesh.local_shape`."""
-    leaves, rebuild = _leaves(tree)
-    n, _, sizes, _ = _ring(axis_name, mesh_axes)
-    if n == 1:
-        return tree
-    if mesh is not None and mesh.group is not None:
-        sizes = list(mesh.local_shape)
+def _pack(leaves, sizes: list[int], n: int) -> torch.Tensor:
+    """The leaves (leading with `sizes`) flattened per rank, concatenated
+    and zero-padded to a multiple of 128 x 8 x n floats: (N, R, 128)."""
     N = math.prod(sizes)
     for leaf in leaves:
         if list(leaf.shape[:len(sizes)]) != sizes:
@@ -262,11 +352,46 @@ def ring_psum(tree, axis_name: str, mesh_axes, mesh=None):
     row = LANES * 8 * n
     total = -(-flat.shape[1] // row) * row
     flat = torch.nn.functional.pad(flat, (0, total - flat.shape[1]))
-    red = ring_all_reduce_flat(flat.reshape(N, -1, LANES), axis_name,
-                               mesh_axes, mesh).reshape(N, -1)
+    return flat.reshape(N, -1, LANES)
+
+
+def _unpack(red: torch.Tensor, leaves, sizes: list[int]) -> list:
+    red = red.reshape(math.prod(sizes), -1)
     out, off = [], 0
     for leaf in leaves:
         size = leaf[(0,) * len(sizes)].numel()
         out.append(red[:, off:off + size].reshape(leaf.shape).to(leaf.dtype))
         off += size
-    return rebuild(out)
+    return out
+
+
+def ring_psum(tree, axis_name: str, mesh_axes, mesh=None):
+    """`psum` over `axis_name` of a tree whose leaves have the mesh's shape
+    as their leading axes: one ring all-reduce of the leaves flattened per
+    rank, concatenated and zero-padded to a multiple of 128 * 8 * n floats
+    (the reference's layout, so its chunk boundaries). With `mesh` over
+    processes the leaves lead with this process's `mesh.local_shape`."""
+    leaves, rebuild = _leaves(tree)
+    n, _, sizes, _ = _ring(axis_name, mesh_axes)
+    if n == 1:
+        return tree
+    if mesh is not None and mesh.group is not None:
+        sizes = list(mesh.local_shape)
+    red = ring_all_reduce_flat(_pack(leaves, sizes, n), axis_name,
+                               mesh_axes, mesh)
+    return rebuild(_unpack(red, leaves, sizes))
+
+
+def ring_psum_ranks(trees: list, axis_name: str, mesh_axes) -> list:
+    """`ring_psum` on a per-rank mesh: trees[r] is rank r's tree (leaves of
+    the rank's own shapes, on its device); one all-reduce of the packed
+    payloads (`ring_all_reduce_ranks`). Returns the per-rank trees."""
+    n, _, _, _ = _ring(axis_name, mesh_axes)
+    if n == 1:
+        return list(trees)
+    parts = [_leaves(t) for t in trees]
+    red = ring_all_reduce_ranks([_pack(leaves, [], n)[0]
+                                 for leaves, _ in parts], axis_name,
+                                mesh_axes)
+    return [rebuild(_unpack(r, leaves, []))
+            for r, (leaves, rebuild) in zip(red, parts)]

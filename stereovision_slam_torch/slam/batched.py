@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from stereovision_slam_torch.device import resolve_device
+from stereovision_slam_torch.device import on_device, resolve_device
 from stereovision_slam_torch.ops import image as imops
 from stereovision_slam_torch.ops.pose_kernel import camera_block
 from stereovision_slam_torch.parallel.mesh import Mesh
@@ -202,8 +202,10 @@ class BatchedFusedVisualOdometry:
     `mesh` (a `parallel.mesh.Mesh` in this process) shards the streams:
     stream b belongs to rank b // (B / mesh.size), and each rank's
     sub-batch state lives on the rank's device and is stepped in turn each
-    frame. Streams never interact, so a shard's step is the unsharded one
-    on its streams; `fs`, `ms`, `arc` and `kf_count` gather the shards."""
+    frame, with that device current (`device.on_device`: kernel launches
+    and anything else that names no device go to the shard's card).
+    Streams never interact, so a shard's step is the unsharded one on its
+    streams; `fs`, `ms`, `arc` and `kf_count` gather the shards."""
 
     def __init__(self, cfg: SlamConfig, datasets,
                  max_total_keyframes: int = 4096,
@@ -263,48 +265,53 @@ class BatchedFusedVisualOdometry:
     def initialize(self):
         """Stereo initialization of every stream, one by one, then stack
         each shard's."""
-        cfg = self.cfg
         for ds in self.datasets:
             ds.initialize()
         ds0 = self.datasets[0]
         for sh in self.shards:
-            dev = sh.device
-            sh.cam_left = ds0.get_camera(ds0.left_cam_index).to(dev)
-            sh.cam_right = ds0.get_camera(ds0.right_cam_index).to(dev)
-            sh.camp = camera_block(sh.cam_left, sh.cam_right)
-            fs_list, ms_list, fids = [], [], []
-            for b in sh.streams:
-                frame = self.datasets[b].next_frame()
-                ms = mapmod.empty_map(cfg.max_keyframes_window,
-                                      cfg.max_features, cfg.max_landmarks,
-                                      device=dev)
-                pyr, right_pyr = _split_pyramids(
-                    *(torch.as_tensor(np.asarray(im, np.float32))[None].to(
-                        dev) for im in (frame.left, frame.right)),
-                    cfg.lk_num_levels)
-                fs = fe.init_state(cfg.max_features, lane(pyr, 0))
-                # the library's default LK budget, not cfg.lk_max_iters, as
-                # in the reference's initializer
-                fs, ms, _, _, _ = fe.keyframe_step(
-                    fs, ms, lane(right_pyr, 0), sh.cam_left, sh.cam_right,
-                    frame.frame_id, 0, num_features=cfg.num_features,
-                    min_distance=cfg.gftt_min_distance,
-                    quality_level=cfg.gftt_quality_level,
-                    max_depth=cfg.max_triangulation_depth,
-                    num_active=cfg.num_active_keyframes, detect_all=True,
-                    detector=cfg.keypoint_feature_detector.lower())
-                fs_list.append(fs)
-                ms_list.append(ms)
-                fids.append(frame.frame_id)
-                self._last[b] = frame
-            sh.fs, sh.ms = stack(fs_list), stack(ms_list)
-            arc = empty_archive(self.Tmax, self.Lmax, device=dev)
-            sh.arc = stack([_record_keyframe(arc, 0, fs.T_cur, fid)
-                            for fs, fid in zip(fs_list, fids)])
-            sh.kf_count = [0] * len(sh.streams)
+            with on_device(sh.device):
+                self._initialize_shard(sh, ds0)
         first = self.shards[0]
         self.cam_left, self.cam_right = first.cam_left, first.cam_right
         self.camp = first.camp
+
+    def _initialize_shard(self, sh, ds0):
+        """Stereo initialization of the shard's streams on its device."""
+        cfg = self.cfg
+        dev = sh.device
+        sh.cam_left = ds0.get_camera(ds0.left_cam_index).to(dev)
+        sh.cam_right = ds0.get_camera(ds0.right_cam_index).to(dev)
+        sh.camp = camera_block(sh.cam_left, sh.cam_right)
+        fs_list, ms_list, fids = [], [], []
+        for b in sh.streams:
+            frame = self.datasets[b].next_frame()
+            ms = mapmod.empty_map(cfg.max_keyframes_window,
+                                  cfg.max_features, cfg.max_landmarks,
+                                  device=dev)
+            pyr, right_pyr = _split_pyramids(
+                *(torch.as_tensor(np.asarray(im, np.float32))[None].to(
+                    dev) for im in (frame.left, frame.right)),
+                cfg.lk_num_levels)
+            fs = fe.init_state(cfg.max_features, lane(pyr, 0))
+            # the library's default LK budget, not cfg.lk_max_iters, as
+            # in the reference's initializer
+            fs, ms, _, _, _ = fe.keyframe_step(
+                fs, ms, lane(right_pyr, 0), sh.cam_left, sh.cam_right,
+                frame.frame_id, 0, num_features=cfg.num_features,
+                min_distance=cfg.gftt_min_distance,
+                quality_level=cfg.gftt_quality_level,
+                max_depth=cfg.max_triangulation_depth,
+                num_active=cfg.num_active_keyframes, detect_all=True,
+                detector=cfg.keypoint_feature_detector.lower())
+            fs_list.append(fs)
+            ms_list.append(ms)
+            fids.append(frame.frame_id)
+            self._last[b] = frame
+        sh.fs, sh.ms = stack(fs_list), stack(ms_list)
+        arc = empty_archive(self.Tmax, self.Lmax, device=dev)
+        sh.arc = stack([_record_keyframe(arc, 0, fs.T_cur, fid)
+                        for fs, fid in zip(fs_list, fids)])
+        sh.kf_count = [0] * len(sh.streams)
 
     def _statics(self) -> dict:
         cfg = self.cfg
@@ -351,13 +358,16 @@ class BatchedFusedVisualOdometry:
             right = torch.from_numpy(np.stack(rights[sl])).to(sh.device)
             state = (sh.fs, sh.ms, sh.arc, sh.kf_count, left, right,
                      fids[sl])
-            if self.kf_stagger > 1:
-                res = batched_staggered_step(
-                    *state, self._step_idx % self.kf_stagger, sh.cam_left,
-                    sh.cam_right, camp=sh.camp, **self._statics())
-            else:
-                res = batched_fused_step(*state, sh.cam_left, sh.cam_right,
-                                         camp=sh.camp, **self._statics())
+            with on_device(sh.device):
+                if self.kf_stagger > 1:
+                    res = batched_staggered_step(
+                        *state, self._step_idx % self.kf_stagger,
+                        sh.cam_left, sh.cam_right, camp=sh.camp,
+                        **self._statics())
+                else:
+                    res = batched_fused_step(*state, sh.cam_left,
+                                             sh.cam_right, camp=sh.camp,
+                                             **self._statics())
             sh.fs, sh.ms, sh.arc, sh.kf_count, out = res
             outs.append(out)
         self._step_idx += 1

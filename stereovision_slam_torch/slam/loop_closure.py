@@ -132,7 +132,8 @@ class LoopClosure:
     network), 'placenet' (the shipped weights), 'thumbnail' (weight-free)
     or 'auto' (see `resolve_embedder`). pgo_mesh: an optional
     `parallel.mesh.Mesh`; with more than one rank the shutdown PGO shards
-    its edges over it (`parallel.sharded_pgo`) instead of one solve."""
+    its edges over it (`parallel.sharded_pgo`) instead of one solve:
+    `parallel.mesh.make_local_mesh()` spreads them over every card."""
 
     def __init__(self, cfg, cam_left, mnv2_weights_path: str | None = None,
                  embedder: str = "auto", pgo_mesh=None):

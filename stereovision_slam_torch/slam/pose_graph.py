@@ -14,9 +14,10 @@ unit; here they are `index_add_` accumulated in float64 and rounded once,
 so a sum does not change between runs with the order of the card's
 atomics. The edges carry a leading rank axis (n, E / n): each rank
 scatters its own edges into a partial (n, T, ...), and `reduce_fn` turns
-the partials into the total. One rank with `_no_reduce` is the
-single-device solver; `parallel/sharded_pgo.py` splits the edges over the
-mesh's ranks and sums the partials, as the reference's `psum`.
+the partials into the total (`_Edges`, the edge side of the body). One
+rank with `_no_reduce` is the single-device solver;
+`parallel/sharded_pgo.py` splits the edges over the mesh's ranks and sums
+the partials, as the reference's `psum`.
 """
 
 from __future__ import annotations
@@ -134,27 +135,59 @@ def _scatter(T: int, ei, ej, vi, vj) -> torch.Tensor:
     return acc.to(vi.dtype).reshape((n, T) + vals.shape[1:])
 
 
-def _hvp(g: PoseGraph, Ji, Jj, lam, diag_blocks, free, x,
-         reduce_fn=_no_reduce):
-    """(H + lam diag) @ x, edge-wise and matrix-free; x (T, 6)."""
-    y = torch.einsum("...ab,...b->...a", Ji, x[g.edge_i]) \
-        + torch.einsum("...ab,...b->...a", Jj, x[g.edge_j])
-    ci = torch.einsum("...ab,...a->...b", Ji, y)
-    cj = torch.einsum("...ab,...a->...b", Jj, y)
-    out = reduce_fn(_scatter(x.shape[0], g.edge_i, g.edge_j, ci, cj))
+class _Edges:
+    """The edge side of the LM/PCG body on a graph whose edge fields carry
+    a leading rank axis (`_edge_ranks`): each sum over edges is a per-rank
+    partial that `reduce_fn` completes. `W`, the edges' whitening, is
+    factored here unless given. The vertex state stays with the caller."""
+
+    def __init__(self, g: PoseGraph, W=None, reduce_fn=_no_reduce):
+        if W is None and g.edge_info is not None:
+            W = _info_sqrt(g.edge_info)
+        self.g, self.W, self.reduce = g, W, reduce_fn
+
+    def chi2(self, poses):
+        r, _, _ = _linearize(self.g._replace(poses=poses), self.W,
+                             jacobians_too=False)
+        return self.reduce(torch.sum(r * r, dim=tuple(range(1, r.dim()))))
+
+    def linearize(self, poses):
+        """(r, J_i, J_j) at `poses`, the state the products below read."""
+        return _linearize(self.g._replace(poses=poses), self.W)
+
+    def _sum(self, T: int, vi, vj):
+        return self.reduce(_scatter(T, self.g.edge_i, self.g.edge_j, vi, vj))
+
+    def gradient(self, lin, T: int):
+        r, Ji, Jj = lin
+        return self._sum(T, torch.einsum("...ab,...a->...b", Ji, r),
+                         torch.einsum("...ab,...a->...b", Jj, r))
+
+    def diag_blocks(self, lin, T: int):
+        _, Ji, Jj = lin
+        return self._sum(T, torch.einsum("...ab,...ac->...bc", Ji, Ji),
+                         torch.einsum("...ab,...ac->...bc", Jj, Jj))
+
+    def hvp(self, lin, x):
+        """H @ x, edge-wise and matrix-free; x (T, 6)."""
+        _, Ji, Jj = lin
+        g = self.g
+        y = torch.einsum("...ab,...b->...a", Ji, x[g.edge_i]) \
+            + torch.einsum("...ab,...b->...a", Jj, x[g.edge_j])
+        return self._sum(x.shape[0], torch.einsum("...ab,...a->...b", Ji, y),
+                         torch.einsum("...ab,...a->...b", Jj, y))
+
+
+def _hvp(edges, lin, lam, diag_blocks, free, x):
+    """(H + lam diag) @ x; x (T, 6)."""
+    out = edges.hvp(lin, x)
     eye = torch.eye(6, dtype=x.dtype, device=x.device)
     out = out + lam * torch.einsum("tab,tb->ta", diag_blocks * eye, x)
     return torch.where(free[:, None], out, x)   # fixed rows: identity
 
 
-def _diag_blocks(g: PoseGraph, Ji, Jj, T: int, reduce_fn=_no_reduce):
-    Hi = torch.einsum("...ab,...ac->...bc", Ji, Ji)
-    Hj = torch.einsum("...ab,...ac->...bc", Jj, Jj)
-    return reduce_fn(_scatter(T, g.edge_i, g.edge_j, Hi, Hj))
-
-
-def _pcg(g, Ji, Jj, b, lam, diag_blocks, free, iters: int = 100,
-         tol: float = 1e-8, reduce_fn=_no_reduce):
+def _pcg(edges, lin, b, lam, diag_blocks, free, iters: int = 100,
+         tol: float = 1e-8):
     """Block-Jacobi preconditioned CG for (H + lam diag) dx = b; runs all
     `iters` steps (a converged step has alpha = 0), so nothing is read
     back to the host."""
@@ -175,7 +208,7 @@ def _pcg(g, Ji, Jj, b, lam, diag_blocks, free, iters: int = 100,
     rz = torch.sum(r * z)
     tiny = torch.full((), 1e-20, dtype=b.dtype, device=b.device)
     for _ in range(iters):
-        Ap = _hvp(g, Ji, Jj, lam, diag_blocks, free, p, reduce_fn)
+        Ap = _hvp(edges, lin, lam, diag_blocks, free, p)
         pAp = torch.sum(p * Ap)
         alpha = rz / torch.where(torch.abs(pAp) < 1e-20, tiny, pAp)
         alpha = torch.where(rz < tol, torch.zeros_like(alpha), alpha)
@@ -189,45 +222,33 @@ def _pcg(g, Ji, Jj, b, lam, diag_blocks, free, iters: int = 100,
     return x
 
 
-def _lm_step(g: PoseGraph, poses, lam, W, cg_iters: int,
-             reduce_fn=_no_reduce):
+def _lm_step(edges, pose_valid, poses, lam, cg_iters: int):
     """One LM iteration from (poses, lam): linearize, the block-Jacobi PCG
-    for the step, accept it when the chi2 drops. Returns (poses, lam)."""
-    T = g.poses.shape[0]
-    first = torch.argmax(g.pose_valid.to(torch.int32))
-    free = g.pose_valid & (torch.arange(T, device=poses.device) != first)
-
-    def total_chi2(p):
-        r, _, _ = _linearize(g._replace(poses=p), W, jacobians_too=False)
-        return reduce_fn(torch.sum(r * r, dim=tuple(range(1, r.dim()))))
-
-    gg = g._replace(poses=poses)
-    r, Ji, Jj = _linearize(gg, W)
-    b = -reduce_fn(_scatter(
-        T, g.edge_i, g.edge_j, torch.einsum("...ab,...a->...b", Ji, r),
-        torch.einsum("...ab,...a->...b", Jj, r)))
-    D = _diag_blocks(gg, Ji, Jj, T, reduce_fn)
-    dx = _pcg(gg, Ji, Jj, b, lam, D, free, iters=cg_iters,
-              reduce_fn=reduce_fn)
+    for the step, accept it when the chi2 drops. `edges` is the edge side
+    (`_Edges`, or the per-rank one of `parallel/sharded_pgo.py`). Returns
+    (poses, lam)."""
+    T = poses.shape[0]
+    first = torch.argmax(pose_valid.to(torch.int32))
+    free = pose_valid & (torch.arange(T, device=poses.device) != first)
+    lin = edges.linearize(poses)
+    b = -edges.gradient(lin, T)
+    D = edges.diag_blocks(lin, T)
+    dx = _pcg(edges, lin, b, lam, D, free, iters=cg_iters)
     poses_new = se3.se3_compose(se3.se3_exp(dx), poses)
-    better = total_chi2(poses_new) < total_chi2(poses)
+    better = edges.chi2(poses_new) < edges.chi2(poses)
     return (torch.where(better, poses_new, poses),
             torch.where(better, torch.clamp(lam * 0.5, min=1e-9),
                         torch.clamp(lam * 4.0, max=1e6)))
 
 
-def _optimize(g: PoseGraph, iters: int, cg_iters: int,
-              reduce_fn=_no_reduce) -> torch.Tensor:
-    """The LM loop shared by the single-device and the sharded PGO. The
-    edge fields of `g` have a leading rank axis; every edge sum below is a
-    per-rank partial that `reduce_fn` completes, and the vertex state
+def _optimize(edges, pose_valid, poses, iters: int,
+              cg_iters: int) -> torch.Tensor:
+    """The LM loop shared by the single-device and the sharded PGO: the
+    edge side's sums are completed by `edges`, and the vertex state
     (poses, CG vectors) is kept once."""
-    # the whitening does not depend on the poses: factor the infos once
-    W = _info_sqrt(g.edge_info) if g.edge_info is not None else None
-    poses = g.poses
     lam = torch.full((), 1e-6, dtype=poses.dtype, device=poses.device)
     for _ in range(iters):
-        poses, lam = _lm_step(g, poses, lam, W, cg_iters, reduce_fn)
+        poses, lam = _lm_step(edges, pose_valid, poses, lam, cg_iters)
     return poses
 
 
@@ -236,7 +257,8 @@ def optimize_pose_graph(g: PoseGraph, iters: int = 22,
     """LM on the pose graph, on the graph's device; returns the refined
     (T, 3, 4) poses. The valid slot with the smallest index is held fixed
     (the reference fixes keyframe 0)."""
-    return _optimize(_edge_ranks(g), iters, cg_iters)
+    return _optimize(_Edges(_edge_ranks(g)), g.pose_valid, g.poses, iters,
+                     cg_iters)
 
 
 class PoseGraphSolver:
@@ -281,8 +303,8 @@ class PoseGraphSolver:
         ge = _edge_ranks(gs)
 
         def step(m):
-            return lambda: [((poses, lam),
-                             _lm_step(ge, poses, lam, W[None], m))]
+            return lambda: [((poses, lam), _lm_step(
+                _Edges(ge, W[None]), gs.pose_valid, poses, lam, m))]
         for _ in range(iters):
             self.runner.run(key, step(cg_iters), warm=step(1))
         return poses.clone()

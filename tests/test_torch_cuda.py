@@ -652,3 +652,101 @@ def test_ring_reduce_two_processes_bit_equal(dev, tmp_path, R):
     for r in res:
         assert int(r["launches"]) == 4
         assert len(r["device_ms"]) == 4
+
+
+def _cards(n: int) -> list:
+    """The first n cards; skips unless the machine has them (decided here,
+    inside the test)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _moved(tree, dev):
+    """`tree` (tensors in tuples, lists and named tuples) on `dev`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_moved(t, dev) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_moved(t, dev) for t in tree)
+    return tree
+
+
+def _flat(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in _flat(sub)]
+
+
+def test_kernels_on_a_second_card():
+    """Kernels A (at window 31, whose shared-memory opt-in holds per
+    card), B, C and the window gather launched on cuda:1 while cuda:0 is
+    the current device, bit for bit the same launches on cuda:0: each
+    wrapper makes its tensors' card current for the launch."""
+    c0, c1 = _cards(2)
+    lefts, rights, _, _, _ = scenes.circuit(device=c0)
+    prev, cur = (imops.build_pyramid(torch.as_tensor(f, device=c0), 4)
+                 for f in (lefts[0], lefts[1]))
+    pts, valid, _ = gftt.detect(prev[0], 256)
+    c_args, c_kw = _window_inputs(c0, 11)
+    rng = np.random.default_rng(1)
+    H, W = cur[0].shape
+    corners = [torch.tensor(rng.integers(0, lim - 32, 256), dtype=torch.int32,
+                            device=c0) for lim in (H, W)]
+    cases = [
+        ("A", lk_lanes.lk_pyramid, ([lv[None] for lv in prev],
+                                    [lv[None] for lv in cur], pts[None],
+                                    pts[None], valid[None]),
+         dict(win_size=31, max_iters=12)),
+        ("B", pk.pose_lm, _pose_streams(c0, 2, 3),
+         dict(chi2_th=5.991, rounds=3, iters=6)),
+        ("C", lk_iterate.lk_iterate, c_args, c_kw),
+        ("gather", gather.gather_windows,
+         (cur[0][None].contiguous(), torch.zeros(256, dtype=torch.int32,
+                                                 device=c0), *corners, 32),
+         {})]
+    counts = (lk_lanes, pk, lk_iterate, gather)
+    for (name, fn, args, kw), mod in zip(cases, counts):
+        outs = []
+        for d in (c0, c1):
+            a = _moved(args, d)
+            before = mod.launch_count
+            with torch.cuda.device(c0):
+                out = fn(*a, **kw)
+            torch.cuda.synchronize(d)
+            assert mod.launch_count == before + 1, name
+            assert all(t.device == d for t in _flat(out)), name
+            outs.append([t.cpu() for t in _flat(out)])
+        for k, g in zip(*outs):
+            assert torch.equal(k.nan_to_num(), g.nan_to_num()) and \
+                torch.equal(k.isnan(), g.isnan()), name
+
+
+@pytest.mark.parametrize("axis,dp,mp,R", [("dp", 4, 1, 32), ("dp", 2, 2, 32),
+                                          ("mp", 2, 2, 4832),
+                                          ("dp", 4, 1, 4832)])
+def test_ring_reduce_across_cards_bit_equal(axis, dp, mp, R):
+    """Kernel D in one process with the ranks on several cards (rank r on
+    card r mod cards; 2 to 4 cards), one launch a card, against the one-card
+    launch of the same payload, bit for bit, twice (the second call after
+    the inputs were rewritten on their cards). R = 32 and 4832 leave the
+    last block of every chunk part-filled; 4832 is the sharded BA's
+    payload."""
+    cards = _cards(min(4, max(2, torch.cuda.device_count())))
+    ma = (("dp", dp), ("mp", mp))
+    n = dp * mp
+    g = torch.Generator(device=cards[0]).manual_seed(R)
+    x = torch.randn((n, R, rr.LANES), generator=g, device=cards[0])
+    parts = [x[r].to(cards[r % len(cards)]) for r in range(n)]
+    for _ in range(2):
+        want = rr.ring_all_reduce_flat(x, axis, ma)
+        before = rr.launch_count
+        got = rr.ring_all_reduce_ranks(parts, axis, ma)
+        assert rr.launch_count == before + len({p.device for p in parts})
+        for r in range(n):
+            assert got[r].device == parts[r].device
+            assert torch.equal(got[r].to(cards[0]), want[r])
+        x.mul_(-0.5)
+        for r, p in enumerate(parts):
+            p.copy_(x[r])

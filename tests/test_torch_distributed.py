@@ -158,8 +158,19 @@ def test_initialize_multihost_one_process_is_a_noop():
     assert mesh.local_shape == (4, 2)
 
 
-def test_several_device_mesh_is_refused(window):
-    mesh = make_ba_mesh(devices=["cpu", "meta"])
-    assert mesh.devices == [torch.device("cpu"), torch.device("meta")]
-    with pytest.raises(NotImplementedError, match="one process per card"):
-        build_sharded_ba(mesh, K, F, L)
+def test_several_device_mesh_matches_one_device(window):
+    """A mesh of one device per rank (the per-rank route, every rank a
+    device entry of this process) against the same mesh as tensor axes
+    on one device, bit for bit: both add the ranks' partials in rank order
+    and form each mp rank's Schur products alone."""
+    _, _, tm, (tl, tr) = window
+    mesh = make_ba_mesh(devices=["cpu"] * 8, dp=4, mp=2)
+    assert mesh.per_rank and mesh.devices == [torch.device("cpu")] * 8
+    for impl in ("xla", "ring"):
+        kf, lm = build_sharded_ba(mesh, K, F, L, iters=ITERS,
+                                  reduce_impl=impl)(tm, tl, tr)
+        kf1, lm1 = build_sharded_ba(make_ba_mesh(8, dp=4, mp=2,
+                                                 device="cpu"),
+                                    K, F, L, iters=ITERS,
+                                    reduce_impl=impl)(tm, tl, tr)
+        assert torch.equal(kf, kf1) and torch.equal(lm, lm1)

@@ -63,3 +63,35 @@ def test_scenes_and_training_tool_import_neither_jax_nor_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+SCRIPTS = ("chip_smoke.py", os.path.join("tests", "torch_multicard.py"))
+
+
+def test_card_scripts_import_neither_jax_nor_the_jax_package():
+    """`chip_smoke.py` and `tests/torch_multicard.py`, each imported in a
+    fresh process together with every module named by any import
+    statement in it (those inside its functions too, read with `ast`)."""
+    import ast
+
+    names = []
+    for script in SCRIPTS:
+        tree = ast.parse(open(os.path.join(REPO, script)).read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names.append(node.module)
+        names.append(os.path.splitext(script)[0].replace(os.sep, "."))
+    assert "tests.torch_multicard" in names and "chip_smoke" in names
+    probe = ("import importlib, json, sys\n"
+             f"for name in {sorted(set(names))!r}:\n"
+             "    importlib.import_module(name)\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'stereovision_slam_tpu'))\n"
+             "print(json.dumps(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -92,9 +92,9 @@ def test_mesh_layout_and_errors(window):
     assert make_ba_mesh(dp=2, mp=3, device="cpu").size == 6
     with pytest.raises(ValueError):
         make_ba_mesh(8, dp=3, mp=2, device="cpu")
-    # ranks on several devices of one process: the mesh is built, the
-    # reducing BA refuses it (one process per card)
-    with pytest.raises(NotImplementedError):
+    # ranks on several devices of one process take the per-rank route,
+    # which runs every rank on the CPU or every rank on a card
+    with pytest.raises(ValueError, match="per-rank mesh"):
         build_sharded_ba(make_ba_mesh(devices=["cpu", "meta"]), K, F, L)
     _, _, tm, (tl, tr) = window
     with pytest.raises(ValueError):

@@ -13,8 +13,11 @@ processes, twice along each axis of the (dp 4, mp 2) mesh on the payload
 4 ranks a process, with the "xla" and the "ring" reduction, and over a
 (dp 1, mp 2) mesh, one rank a process; kernel D's plain route across the
 processes on the payload "payload" along both axes; and the sharded PGO
-over 8 ranks on the graph (fields prefixed "g_"). Each process writes
-<outdir>/result_<process_id>.npz. Imports no JAX.
+over 8 ranks on the graph (fields prefixed "g_"). With four processes on
+the CPU the mesh is (dp 2, mp 2), one rank a process: the sharded BA with
+"xla" and "ring", kernel D's plain route along both axes on the first 4
+ranks of "payload", and the sharded PGO over the 4 ranks. Each process
+writes <outdir>/result_<process_id>.npz. Imports no JAX.
 """
 
 import os
@@ -102,7 +105,7 @@ def main() -> None:
     device = sys.argv[6] if len(sys.argv) > 6 else "cpu"
     # one intra-op thread: the suite's parallel workers share the cores
     torch.set_num_threads(1)
-    initialize_multihost(f"127.0.0.1:{port}", nproc, pid)
+    initialize_multihost(f"127.0.0.1:{port}", nproc, pid, device=device)
     d = np.load(inputs)
     if device != "cpu":
         out = ring_on_card(d, device)
@@ -113,10 +116,38 @@ def main() -> None:
         return
     m = _tuple(MapState, d, "m_")
     cl, cr = _tuple(Camera, d, "cl_"), _tuple(Camera, d, "cr_")
+    g = _tuple(PoseGraph, d, "g_")
+    run = two_processes if nproc == 2 else one_rank_a_process
+    out = run(d, m, cl, cr, g, pid)
+    np.savez(os.path.join(outdir, f"result_{pid}.npz"), **out)
+    torch.distributed.destroy_process_group()
+    print(f"worker {pid} done", flush=True)
+
+
+def one_rank_a_process(d, m, cl, cr, g, pid: int) -> dict:
+    """Four processes, one rank each, mesh (dp 2, mp 2)."""
+    K, F = m.obs_lm.shape
+    L = m.lm_pos.shape[0]
+    mesh = make_ba_mesh(4, dp=2, mp=2, device="cpu")
+    assert mesh.ranks == range(pid, pid + 1), mesh.ranks
+    out = {}
+    for impl in ("xla", "ring"):
+        kf, lm = build_sharded_ba(mesh, K, F, L, iters=ITERS,
+                                  reduce_impl=impl)(m, cl, cr)
+        out[f"kf_{impl}"], out[f"lm_{impl}"] = kf.numpy(), lm.numpy()
+    mine = torch.from_numpy(d["payload"])[pid:pid + 1]
+    for axis in ("dp", "mp"):
+        out[f"ring_{axis}"] = ring_reduce.ring_all_reduce_flat(
+            mine, axis, mesh.mesh_axes, mesh).numpy()
+    out["pgo"] = build_sharded_pgo(mesh)(g).numpy()
+    return out
+
+
+def two_processes(d, m, cl, cr, g, pid: int) -> dict:
+    """Two processes, 4 of the 8 ranks each, and the (dp 1, mp 2) mesh."""
     K, F = m.obs_lm.shape
     L = m.lm_pos.shape[0]
     out = {}
-
     mesh = make_ba_mesh(8, dp=4, mp=2, device="cpu")
     assert mesh.ranks == range(4 * pid, 4 * pid + 4), mesh.ranks
     for impl in ("xla", "ring"):
@@ -134,12 +165,8 @@ def main() -> None:
         out[f"ring_{axis}"] = ring_reduce.ring_all_reduce_flat(
             mine, axis, mesh.mesh_axes, mesh).numpy()
 
-    g = _tuple(PoseGraph, d, "g_")
     out["pgo"] = build_sharded_pgo(make_ba_mesh(8, device="cpu"))(g).numpy()
-
-    np.savez(os.path.join(outdir, f"result_{pid}.npz"), **out)
-    torch.distributed.destroy_process_group()
-    print(f"worker {pid} done", flush=True)
+    return out
 
 
 if __name__ == "__main__":
