@@ -44,7 +44,10 @@ Phases, in order; any failure exits non-zero:
      version, bit for bit, at the reference test's three meshes and at the
      sharded BA's payload (8 ranks x 2.5 MB); one call is one launch with
      no memset and no device->host read; warm and cold (L2 flushed) times,
-     plain, bound and torch.sum times;
+     plain, bound and torch.sum times; then its owner form (the route
+     across cards) on the card, the 8 ranks as 4 cards of 2, one launch a
+     card in turn with the handshake compiled out, bit for bit its plain
+     version and the one launch, with its times;
  11. the distributed BA (`build_sharded_ba`, mesh (dp 4, mp 2), 6 LM
      iterations, compaction 2048) on the slice's final window, the dp
      reduction by a sum and by kernel D (6 launches, each held to its plain
@@ -174,6 +177,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM data sheet, each way
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, float32 outside tensor cores
 
 # stated tolerances of the kernel-vs-plain comparisons (see PERF.md)
@@ -216,6 +220,9 @@ RING_F64_TOL = 1e-6
 # the five BA blocks at K = 16, La = 2048 (615,072 floats) padded to a
 # multiple of 128 x 8 x 4: 4832 rows of 128 per rank
 RING_PATH_ROWS = 4832
+# phase 10: kernel D's owner form on the card, phase 10's 8 ranks standing
+# for OWNED_CARDS cards of 2 ranks (the 8-rank mesh over 4 cards)
+OWNED_CARDS = 4
 SHARDED_LA = 2048
 SHARD_NOISE, SHARD_SEED = (0.01, 0.1), 3   # tangent, landmark metres
 # (poses, landmarks in m, landmarks per m of distance from the gauge
@@ -471,20 +478,36 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cross_process_bound(mesh_axes, axis: str, per_proc: int, rows: int):
-    """Kernel D's bound for one process's launch across processes, each
-    owning `per_proc` consecutive ranks of the mesh (process 0's): it reads
-    every rank of each ring that holds one of its ranks, writes its own
-    ranks' outputs, and adds n - 1 terms per element of those rings."""
+def ring_least_ms(mesh_axes, axis: str, rows: int, card_of_rank, card: int,
+                  launches: int = 1):
+    """Kernel D's least time on `card` for one call at `rows` x 128 float32
+    a rank, shared evenly by the `launches` launches made there (processes
+    sharing the card): (ms, "bytes" or "operations", what bounds it).
+    card_of_rank[r] is rank r's card. The function's least work on the
+    card: it reads each of its ranks' inputs and writes each of their
+    outputs once in its memory; for each ring spread over M >= 2 cards it
+    takes in and sends out 2 (M - 1) / M of a rank over NVLink (the ring's
+    per-card partial sums reduce-scattered, then all-gathered: the least
+    that an all-reduce adding at the end points moves); and it does its
+    share, 1 / M, of the ring's n - 1 additions per element."""
     names = [name for name, _ in mesh_axes]
     sizes = [size for _, size in mesh_axes]
     a = names.index(axis)
     n, stride = sizes[a], math.prod(sizes[a + 1:])
-    rings = {(r // (n * stride)) * stride + r % stride
-             for r in range(per_proc)}
     floats = rows * 128
-    return bound_ms(4 * floats * (len(rings) * n + per_proc),
-                    len(rings) * floats * (n - 1))
+    own = sum(1 for c in card_of_rank if c == card)
+    link, flops = 0.0, 0.0
+    for ring in range(len(card_of_rank) // n):
+        base = (ring // stride) * n * stride + ring % stride
+        cards = {card_of_rank[base + q * stride] for q in range(n)}
+        if card in cards:
+            M = len(cards)
+            link += 2 * (M - 1) / M * 4 * floats
+            flops += (n - 1) * floats / M
+    t = max((2 * own * 4 * floats / HBM_BYTES_PER_S, "bytes", "HBM"),
+            (link / NVLINK_BYTES_PER_S, "bytes", "NVLink"),
+            (flops / FP32_FLOP_PER_S, "operations", "float32"))
+    return t[0] * 1e3 / launches, t[1], t[2]
 
 
 def check_lk(rendered, dev):
@@ -1901,7 +1924,90 @@ def check_ring(dev):
                 max_abs_err=err, ms=ms, device_ms=dev_ms, cold_ms=cold,
                 host_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                 library_ms=lib_ms, library_device_ms=lib_dev,
-                library_cold_ms=lib_cold)
+                library_cold_ms=lib_cold,
+                owned=check_ring_owned(x, axis, ma, lib_ms, dev_ms))
+
+
+def check_ring_owned(x, axis: str, ma, lib_ms: float, one_ms: float) -> dict:
+    """Phase 10, kernel D's owner form (its route across cards) on the one
+    card: phase 10's payload as OWNED_CARDS cards of ranks (rank r on card
+    r // 2), one launch per card in turn on the stream with the handshake
+    compiled out, bit for bit its plain version (the owner form's
+    bookkeeping) and the table form's launch; times beside the table
+    form's (`one_ms`, alone) and torch.sum's (`lib_ms`). On the card it
+    moves what the table form does, so their bound is the same."""
+    import torch
+    from stereovision_slam_torch.parallel import ring_reduce as rr
+
+    xs = list(x.unbind(0))
+    owner = [r * OWNED_CARDS // len(xs) for r in range(len(xs))]
+    call = lambda: rr.ring_all_reduce_owned(xs, owner, axis, ma)
+    before = rr.launch_count
+    got = call()
+    launches = rr.launch_count - before
+    plain = rr.ring_all_reduce_owned_plain(xs, owner, axis, ma)
+    one = rr.ring_all_reduce_flat(x, axis, ma)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, p) and torch.equal(g, one[r])
+               for r, (g, p) in enumerate(zip(got, plain)))
+    err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+    check(same, f"kernel D's owner form differs from its plain version or "
+          f"the table form: {err}")
+    check(launches == OWNED_CARDS, f"kernel D's owner form launched "
+          f"{launches} times a call, not {OWNED_CARDS}")
+    ms, dev_ms, wrap_ms = cuda_ms(call, 50), device_ms(call, 50), \
+        host_ms(call, 50)
+    plain_ms = cuda_ms(lambda: rr.ring_all_reduce_owned_plain(
+        xs, owner, axis, ma), 5)
+    b, by, _ = ring_least_ms(ma, axis, x.shape[1], [0] * len(xs), 0)
+    print(f"kernel D's owner form on the card ({OWNED_CARDS} cards of "
+          f"{len(xs) // OWNED_CARDS} ranks, one launch each in turn, no "
+          f"handshake): bit for bit its plain version and the table form: "
+          f"{same}; {ms:.4f} ms per call back to back, {dev_ms:.4f} ms "
+          f"alone (the table form {one_ms:.4f}), host {wrap_ms:.4f} ms per "
+          f"call; plain {plain_ms:.3f} ms; torch.sum {lib_ms:.4f} ms; bound "
+          f"{b:.6f} ms ({by})")
+    # one owner of every chunk: the table form's one launch, in the owner
+    # kernel (the same blocks and fold); alone, table A, owner B, B, A
+    single = lambda: rr.ring_all_reduce_owned(xs, [0] * len(xs), axis, ma)
+    table = lambda: rr.ring_all_reduce_flat(x, axis, ma)
+    s_same = all(torch.equal(g, one[r]) for r, g in enumerate(single()))
+    check(s_same, "kernel D's owner form with one owner differs from the "
+          "table form")
+    abba = [device_ms(f, 50) for f in (table, single, single, table)]
+    print(f"kernel D's owner form with one owner of every chunk (one "
+          f"launch, the table form's blocks): bit for bit the table form: "
+          f"{s_same}; alone, table form / owner form / owner form / table "
+          f"form: {' / '.join(f'{v:.4f}' for v in abba)} ms")
+    # launches: counted on the main path's runs (main); the owner form runs
+    # there only across cards (tests/torch_multicard.py)
+    return dict(name="ring_all_reduce owner form",
+                route="cuda",
+                source="stereovision_slam_torch/csrc/ring_reduce.cu",
+                replaces="stereovision_slam_tpu/parallel/ring_reduce.py:39",
+                launches_per_call=launches, max_abs_err=err,
+                ms=ms, device_ms=dev_ms, host_ms=wrap_ms, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=lib_ms,
+                table_form_device_ms=one_ms,
+                one_owner_abba_device_ms=abba)
+
+
+class OwnedLaunches:
+    """Kernel D's owner-form launches (`owned_launch_count` of
+    parallel/ring_reduce.py, a part of its `launch_count`) as a counter the
+    phases zero and read beside the modules' `launch_count`."""
+
+    def __init__(self, rr):
+        self.rr = rr
+        self.__name__ = "ring_reduce owner form"
+
+    @property
+    def launch_count(self) -> int:
+        return self.rr.owned_launch_count
+
+    @launch_count.setter
+    def launch_count(self, n: int) -> None:
+        self.rr.owned_launch_count = n
 
 
 @contextlib.contextmanager
@@ -2912,8 +3018,9 @@ def dist_worker(rank: int, world: int, port: int, tmp: str) -> None:
     ring()
     rr.trace = []
     _, t_ring = timed(lambda: [ring() for _ in range(DIST_RING_REPS)])
-    out["ring_device_ms"] = [t["device_ms"] for t in rr.trace]
-    out["ring_sync_ms"] = [t["sync_ms"] for t in rr.trace]
+    traced = rr.read_trace()
+    out["ring_device_ms"] = [t["device_ms"] for t in traced]
+    out["ring_sync_ms"] = [t["sync_ms"] for t in traced]
     rr.trace = None
     out["ring_host_ms"] = 1e3 * t_ring / DIST_RING_REPS
     # the same sums in gloo's order: close to kernel D's, not its bits
@@ -2927,12 +3034,13 @@ def dist_worker(rank: int, world: int, port: int, tmp: str) -> None:
     K, F, L = inp["KFL"]
     for impl in ("ring", "xla"):
         run = build_sharded_ba(mesh, K, F, L, reduce_impl=impl, **inp["kw"])
-        rr.launch_count = 0
+        rr.launch_count = rr.owned_launch_count = 0
         records = []
         with ring_held(records):     # each launch against gather + plain
             kf, lm = run(m, cl, cr)
             torch.cuda.synchronize()
         out[f"launches_{impl}"] = rr.launch_count
+        out[f"owned_launches_{impl}"] = rr.owned_launch_count
         out[f"held_{impl}"] = [r["equal"] for r in records]
         out[f"kf_{impl}"], out[f"lm_{impl}"] = kf.cpu(), lm.cpu()
         _, t = timed(lambda: run(m, cl, cr))
@@ -3011,8 +3119,9 @@ def dist_phase(ba: dict, pgo: dict, kernel_d: dict, dev):
     plain = rr.ring_all_reduce_plain(payload.to(dev), "dp", ma).cpu()
     two = torch.cat([r["ring"] for r in res])
     ring_same = torch.equal(two, one) and torch.equal(two, plain)
-    bound, bound_by = cross_process_bound(ma, "dp", 8 // DIST_PROCS,
-                                          RING_PATH_ROWS)
+    # both processes on the one card: the card's least bytes, half a launch
+    bound, bound_by, _ = ring_least_ms(ma, "dp", RING_PATH_ROWS, [0] * 8, 0,
+                                       launches=DIST_PROCS)
     dev_ms = [v for r in res for v in r["ring_device_ms"]]
     sync_ms = [v for r in res for v in r["ring_sync_ms"]]
     print(f"phase 19 (a): {DIST_PROCS} processes on "
@@ -3079,7 +3188,8 @@ def dist_phase(ba: dict, pgo: dict, kernel_d: dict, dev):
                   sync_ms=float(np.median(sync_ms)),
                   host_ms=float(np.mean([r["ring_host_ms"] for r in res])),
                   library_ms=float(np.mean([r["gloo_ms"] for r in res])),
-                  processes=DIST_PROCS)
+                  processes=DIST_PROCS,
+                  owned_launches=sum(r["owned_launches_ring"] for r in res))
     return sum(launches), timing, missed
 
 
@@ -3677,7 +3787,8 @@ def main() -> int:
     # 4. the slice on the card, counters read around this run only
     counters = {"lk_pyramid": lk_lanes, "pose_lm": pose_kernel,
                 "lk_iterate": lk_iterate, "gather_windows": gather,
-                "ring_all_reduce": ring_reduce}
+                "ring_all_reduce": ring_reduce,
+                "ring_all_reduce owner form": OwnedLaunches(ring_reduce)}
     T = len(lefts)
     for mod in counters.values():
         mod.launch_count = 0
@@ -3825,6 +3936,8 @@ def main() -> int:
         n_d, kernels[-1]["cross_process"], failed = dist_phase(
             ba_keep, pgo_keep, kernels[-1], dev)
         by_path["sharded_ba_2proc"]["ring_all_reduce"] = n_d
+        by_path["sharded_ba_2proc"]["ring_all_reduce owner form"] = \
+            kernels[-1]["cross_process"].get("owned_launches", 0)
         missed += failed
         by_path["serving_mesh"], failed = serving_mesh_phase(
             streams, rig, counters, dev)
@@ -3872,10 +3985,17 @@ def main() -> int:
     for k in kernels:
         k["launches"] = sum(by_path[p][k["name"]] for p in main_path[k["name"]])
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+    # the owner form, counted apart on kernel D's paths (on one card they
+    # launch the table form)
+    owned = kernels[-1]["owned"]
+    owned["launches"] = sum(by_path[p][owned["name"]]
+                            for p in main_path["ring_all_reduce"])
+    owned["launches_by_path"] = {p: by_path[p][owned["name"]]
+                                 for p in main_path["ring_all_reduce"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "cold_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_cold_ms",
-            "streams_4x3", "wide", "cross_process", "per_rank",
+            "streams_4x3", "wide", "cross_process", "per_rank", "owned",
             "launches_by_path")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))

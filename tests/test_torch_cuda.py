@@ -654,6 +654,32 @@ def test_ring_reduce_two_processes_bit_equal(dev, tmp_path, R):
         assert len(r["device_ms"]) == 4
 
 
+def test_ring_reduce_processes_wait_for_a_late_peer(tmp_path):
+    """Kernel D across four processes, one card each (NCCL; the owner form,
+    the cards ordered in the kernel, no host barrier), with process 1
+    sleeping 2 s before its second call along each axis: its peers'
+    kernels wait for it in their spins, under SPIN_TIMEOUT_S, and every
+    result is bit for bit the one-process launch."""
+    from tests import torch_dist_worker
+
+    c = _cards(4)
+    assert rr.SPIN_TIMEOUT_S >= 10
+    rng = np.random.default_rng(3)
+    payload = rng.standard_normal((8, 64, rr.LANES)).astype(np.float32)
+    np.savez(tmp_path / "inputs.npz", payload=payload, late=[1, 2.0])
+    res = torch_dist_worker.spawn(str(tmp_path / "inputs.npz"),
+                                  str(tmp_path), "cuda", nproc=4,
+                                  timeout=240)
+    x = torch.from_numpy(payload).to(c[0])
+    ma = (("dp", 4), ("mp", 2))
+    for axis in ("dp", "mp"):
+        want = rr.ring_all_reduce_flat(x, axis, ma).cpu().numpy()
+        got = np.concatenate([r[f"ring_{axis}"] for r in res])
+        np.testing.assert_array_equal(got, want)
+    for r in res:
+        assert int(r["launches"]) == int(r["owned_launches"]) == 4
+
+
 def _cards(n: int) -> list:
     """The first n cards; skips unless the machine has them (decided here,
     inside the test)."""
@@ -750,3 +776,126 @@ def test_ring_reduce_across_cards_bit_equal(axis, dp, mp, R):
         x.mul_(-0.5)
         for r, p in enumerate(parts):
             p.copy_(x[r])
+
+
+def test_ring_reduce_owner_form_on_one_card(dev):
+    """Kernel D's owner form on one card (the handshake compiled out), at
+    the sharded BA's payload over 8 ranks standing for 4 cards of 2 ranks:
+    one launch per owner, bit for bit its plain version and the table
+    form's one launch."""
+    ma = (("dp", 4), ("mp", 2))
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((8, 4832, rr.LANES), generator=g, device=dev)
+    xs = list(x.unbind(0))
+    owner = [r // 2 for r in range(8)]
+    before = rr.launch_count
+    got = rr.ring_all_reduce_owned(xs, owner, "dp", ma)
+    assert rr.launch_count == before + 4
+    want = rr.ring_all_reduce_flat(x, "dp", ma)
+    plain = rr.ring_all_reduce_owned_plain(xs, owner, "dp", ma)
+    for r in range(8):
+        assert torch.equal(got[r], want[r]) and torch.equal(got[r], plain[r])
+
+
+def test_ring_reduce_across_cards_back_to_back_bit_equal():
+    """100 calls of kernel D over the cards (rank r on card r mod cards,
+    the sharded BA's payload), each input rewritten on its own card's
+    stream right after each call, from values staged there beforehand, with
+    nothing waited for: every call bit for bit the one-card launch of its
+    inputs. A launch that ended before its peers stopped reading its
+    inputs (no closing handshake) would have summed the next call's
+    values."""
+    cards = _cards(min(4, max(2, torch.cuda.device_count())))
+    ma = (("dp", 4), ("mp", 1))
+    g = torch.Generator(device=cards[0]).manual_seed(11)
+    x = torch.randn((4, 4832, rr.LANES), generator=g, device=cards[0])
+    scales = [(-1.0) ** i * (1 + i % 7) for i in range(100)]
+    staged = [[(x[r] * s).to(cards[r % len(cards)]) for r in range(4)]
+              for s in scales]
+    parts = [t.clone() for t in staged[0]]
+    for c in cards:
+        torch.cuda.synchronize(c)
+    got = []
+    for i in range(len(scales)):
+        got.append(rr.ring_all_reduce_ranks(parts, "dp", ma))
+        for p, t in zip(parts, staged[(i + 1) % len(scales)]):
+            p.copy_(t)
+    for c in cards:
+        torch.cuda.synchronize(c)
+    for s, outs in zip(scales, got):
+        want = rr.ring_all_reduce_flat(x * s, "dp", ma)
+        for r in range(4):
+            assert torch.equal(outs[r].to(cards[0]), want[r])
+
+
+def test_ring_reduce_across_cards_makes_no_event_or_wait(monkeypatch):
+    """The cards order themselves inside the kernel: a call over the cards
+    creates no CUDA event, makes no stream wait and synchronizes nothing
+    (after the first call, which allocates and zeroes the flag blocks)."""
+    cards = _cards(min(4, max(2, torch.cuda.device_count())))
+    ma = (("dp", 4), ("mp", 1))
+    parts = [torch.ones((64, rr.LANES), device=cards[r % len(cards)])
+             for r in range(4)]
+    rr.ring_all_reduce_ranks(parts, "dp", ma)
+    calls = []
+
+    def counted(name, fn):
+        def f(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return f
+
+    for name in ("wait_event", "wait_stream", "record_event", "synchronize"):
+        monkeypatch.setattr(torch.cuda.Stream, name,
+                            counted(name, getattr(torch.cuda.Stream, name)))
+    monkeypatch.setattr(torch.cuda, "Event",
+                        counted("Event", torch.cuda.Event))
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        counted("synchronize", torch.cuda.synchronize))
+    before = rr.launch_count
+    out = rr.ring_all_reduce_ranks(parts, "dp", ma)
+    assert calls == []
+    assert rr.launch_count == before + len(cards)
+    monkeypatch.undo()
+    for o in out:
+        assert torch.equal(o.cpu(), torch.full((64, rr.LANES), 4.0))
+
+
+_NO_PEER = r"""
+import sys, time
+import torch
+from stereovision_slam_torch.parallel import ring_reduce as rr
+cards = (0, 1)
+rr.SPIN_TIMEOUT_S = 2.0
+xs = [torch.ones((64, rr.LANES), device=f"cuda:{c}") for c in cards]
+route = rr._cards_route(cards)
+tables = route.tables([x.data_ptr() for x in xs], [0, 1], 2, 1, 64)
+outs = [torch.empty_like(x) for x in xs]
+t0 = time.perf_counter()
+# card 0 launches; its peer never does
+rr._launch_owned(tables[:1], [0], [o.data_ptr() for o in outs], 2, 1, 64,
+                 route.next_epoch())
+try:
+    torch.cuda.synchronize(0)
+    print("NOT RAISED")
+except RuntimeError as e:
+    print(f"RAISED after {time.perf_counter() - t0:.2f} s: {e}")
+"""
+
+
+def test_ring_reduce_traps_when_a_peer_never_launches(tmp_path):
+    """A card whose peer never launches gives up after SPIN_TIMEOUT_S (set
+    to 2 s in the child): the kernel traps and the next synchronize raises
+    (in a child process: a trap leaves the context unusable)."""
+    import os
+    import subprocess
+    import sys
+
+    _cards(2)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _NO_PEER], cwd=repo,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=repo))
+    assert "RAISED after" in r.stdout, r.stdout + r.stderr[-2000:]
+    waited = float(r.stdout.split("RAISED after ")[1].split(" s")[0])
+    assert 1.9 < waited < 20, r.stdout

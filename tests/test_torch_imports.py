@@ -65,11 +65,12 @@ def test_scenes_and_training_tool_import_neither_jax_nor_the_jax_package():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
-SCRIPTS = ("chip_smoke.py", os.path.join("tests", "torch_multicard.py"))
+SCRIPTS = ("chip_smoke.py", os.path.join("tests", "torch_multicard.py"),
+           os.path.join("tests", "torch_kernel_d_cards.py"))
 
 
 def test_card_scripts_import_neither_jax_nor_the_jax_package():
-    """`chip_smoke.py` and `tests/torch_multicard.py`, each imported in a
+    """`chip_smoke.py` and the card tools of SCRIPTS, each imported in a
     fresh process together with every module named by any import
     statement in it (those inside its functions too, read with `ast`)."""
     import ast

@@ -4,10 +4,14 @@
 Run as: python tests/torch_dist_worker.py <process_id> <num_processes>
 <port> <inputs.npz> <outdir> [cpu|cuda], or through `spawn`.
 
-The processes join a gloo group on 127.0.0.1:<port>. With "cuda" (every
-process on cuda:0, tests/test_torch_cuda.py) only kernel D runs across the
-processes, twice along each axis of the (dp 4, mp 2) mesh on the payload
-"payload" (the second call reuses the IPC mappings). On the window of
+The processes join a gloo group on 127.0.0.1:<port>. With "cuda"
+(tests/test_torch_cuda.py: two processes on cuda:0 over gloo, or one
+process a card over NCCL where the machine has a card for each) only
+kernel D runs across the processes, twice along each axis of the (dp 4,
+mp 2) mesh on the payload "payload" (the second call reuses the IPC
+mappings); with "late" = (p, s) in <inputs.npz>, process p sleeps s
+seconds before each second call, while its peers' kernels wait. On the
+window of
 <inputs.npz> (a port MapState and its two cameras, fields prefixed "m_",
 "cl_", "cr_") each runs the sharded BA over an 8-rank (dp 4, mp 2) mesh,
 4 ranks a process, with the "xla" and the "ring" reduction, and over a
@@ -22,6 +26,7 @@ writes <outdir>/result_<process_id>.npz. Imports no JAX.
 
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -86,16 +91,23 @@ def ring_on_card(d, device: str) -> dict:
     out = {}
     ring_reduce.trace = []
     before = ring_reduce.launch_count
+    owned = ring_reduce.owned_launch_count
+    late, pid = d["late"] if "late" in d else (-1, 0), \
+        torch.distributed.get_rank()
     for axis in ("dp", "mp"):
         first = ring_reduce.ring_all_reduce_flat(mine, axis, mesh.mesh_axes,
                                                  mesh)
+        if pid == int(late[0]):
+            time.sleep(float(late[1]))
         again = ring_reduce.ring_all_reduce_flat(mine, axis, mesh.mesh_axes,
                                                  mesh)
         torch.cuda.synchronize()
         assert torch.equal(first, again)
         out[f"ring_{axis}"] = first.cpu().numpy()
     out["launches"] = np.int64(ring_reduce.launch_count - before)
-    out["device_ms"] = np.array([t["device_ms"] for t in ring_reduce.trace])
+    out["owned_launches"] = np.int64(ring_reduce.owned_launch_count - owned)
+    out["device_ms"] = np.array([t["device_ms"]
+                                 for t in ring_reduce.read_trace()])
     return out
 
 

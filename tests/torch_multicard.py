@@ -14,18 +14,21 @@ One process, one rank a card (`make_ba_mesh(devices=...)`, the per-rank
 route), then four processes, one card each, over NCCL:
 
   (a) kernel D over the 4 cards, (dp 4, mp 1), chip_smoke's
-      RING_PATH_ROWS x 128 float32 a rank: one launch a card, bit for bit
-      the one-card launch; ms per card (CUDA events on each card's
-      stream), host ms a call, the bound (the remote bytes a card reads
-      over NVLink at 450 GB/s each way, or its local bytes over 3.35 TB/s,
-      the larger), the plain version's ms, and
-      `torch.cuda.comm.reduce_add` then `broadcast` on the same payload;
+      RING_PATH_ROWS x 128 float32 a rank: the owner form, one launch a
+      card, bit for bit the one-card launch, with no CUDA event on the
+      route; side by side: ms per card (CUDA events on each card's stream)
+      against the function's least time (`chip_smoke.ring_least_ms`:
+      2 (n - 1) / n of a rank each way over NVLink at 450 GB/s), the host's
+      enqueue a call, the wall a call back to back, and
+      `torch.cuda.comm.reduce_add` then `broadcast` on the same payload
+      (each loop timed after an untimed one, so that the caching allocator
+      holds its results); the plain version's ms;
   (b) the sharded BA on chip_smoke phase 11's window (the slice's final
       window at `make_config` settings, perturbed as there) over the 4
       cards at (2, 2) and (4, 1), "ring" (every kernel D call held to its
-      plain version) and "xla", within SHARD_RING_TOL of the one-card run
-      at the same split and SHARD_SINGLE_TOL of the single-card BA; ms a
-      call;
+      plain version; bit for bit the one-card run) and "xla", within
+      SHARD_RING_TOL of the one-card run at the same split and
+      SHARD_SINGLE_TOL of the single-card BA; ms a call;
   (c) the sharded PGO over the 4 cards on phase 12's graph and on the
       long circuit's keyframe graph with its loops (`scenes.circuit_long`
       through `ScanLoopVisualOdometry`), each within PGO_SHARD_TOL of the
@@ -39,11 +42,13 @@ route), then four processes, one card each, over NCCL:
   (f) the dense tool with `--mesh` over the 4 cards on the fused command
       line run's keyframes (phase 16), equal to the serial cloud;
   (g) four processes, one card each, over NCCL: kernel D across the
-      processes bit for bit the one-card launch, with its device and
-      barrier ms and `dist.all_reduce` on the same payload; the sharded
-      BA at (2, 2) within SHARD_RING_TOL of the one-card run; the sharded
-      PGO on phase 12's graph within PGO_SHARD_TOL of the single solve,
-      seconds a solve. Imports no JAX.
+      processes (the owner form, no host barrier) bit for bit the one-card
+      launch; side by side: its device ms a launch against the function's
+      least time, the host clock a call, and `dist.all_reduce` on the same
+      payload; the sharded BA at (2, 2) within SHARD_RING_TOL of the
+      one-card run ("ring" bit for bit); the sharded PGO on phase 12's
+      graph within PGO_SHARD_TOL of the single solve, seconds a solve.
+      Imports no JAX.
 """
 
 from __future__ import annotations
@@ -59,7 +64,6 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CARDS = 4
-NVLINK_BYTES_PER_S = 450e9    # H100 SXM, each way (NVIDIA's data sheet)
 RING_REPS = 50
 PROC_TIMEOUT_S = 420
 
@@ -86,17 +90,6 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def ring_bound(R: int, n: int) -> tuple[float, str]:
-    """Kernel D's least time on one card of a ring of n cards, one rank a
-    card: it reads its own rank and writes its output in its own memory,
-    and reads the n - 1 other ranks over NVLink."""
-    rank_bytes = 4 * R * 128
-    remote = (n - 1) * rank_bytes / NVLINK_BYTES_PER_S * 1e3
-    local = 2 * rank_bytes / 3.35e12 * 1e3
-    return (remote, "bytes (NVLink)") if remote >= local else \
-        (local, "bytes (HBM)")
-
-
 def kernel_d(cs, cards, payload) -> tuple[dict, list]:
     """(a): kernel D in one process over the cards."""
     import torch
@@ -109,8 +102,20 @@ def kernel_d(cs, cards, payload) -> tuple[dict, list]:
     parts = [x[r].to(c) for r, c in enumerate(cards)]
     one = rr.ring_all_reduce_flat(x, "dp", ma)
     plain = rr.ring_all_reduce_plain(x, "dp", ma)
+    rr.ring_all_reduce_ranks(parts, "dp", ma)   # the flag blocks, once
+    sync_all()
+    events = []
+    real_event = torch.cuda.Event
+
+    def counted(*a, **kw):
+        events.append(a)
+        return real_event(*a, **kw)
     before = rr.launch_count
-    got = rr.ring_all_reduce_ranks(parts, "dp", ma)
+    torch.cuda.Event = counted
+    try:
+        got = rr.ring_all_reduce_ranks(parts, "dp", ma)
+    finally:
+        torch.cuda.Event = real_event
     sync_all()
     launches = rr.launch_count - before
     same = torch.equal(one, plain) and all(
@@ -118,6 +123,9 @@ def kernel_d(cs, cards, payload) -> tuple[dict, list]:
 
     def call():
         return rr.ring_all_reduce_ranks(parts, "dp", ma)
+    # warm: the caching allocator then holds RING_REPS results a card (the
+    # first such loop spends its time in cudaMalloc)
+    timed(lambda: [call() for _ in range(RING_REPS)])
     _, t_wall = timed(lambda: [call() for _ in range(RING_REPS)])
     # the device's own time: every card's stream held by a sleep kernel
     # until all the calls are queued, then CUDA events around them
@@ -135,6 +143,22 @@ def kernel_d(cs, cards, payload) -> tuple[dict, list]:
         e.record(torch.cuda.current_stream(c))
     sync_all()
     per_card = [s.elapsed_time(e) / RING_REPS for s, e in zip(starts, ends)]
+    # the enqueue again with the packed tables rebuilt every call (the
+    # route's cache emptied before each), the streams held the same way
+    route = rr._card_routes[tuple(c.index for c in cards)]
+    for c in cards:
+        with torch.cuda.device(c):
+            torch.cuda._sleep(int(3 * t_wall * 1e3 * 2e6))
+    rebuilt, t_miss = [], 0.0
+    for _ in range(RING_REPS):
+        route._tables.clear()
+        t0 = time.perf_counter()
+        rebuilt.append(call())
+        t_miss += time.perf_counter() - t0
+    sync_all()
+    host_miss = t_miss * 1e3 / RING_REPS
+    same_miss = all(torch.equal(g.to(cards[0]), one[r])
+                    for r, g in enumerate(rebuilt[-1]))
 
     def plain_call():
         return rr.ring_all_reduce_plain(torch.stack(
@@ -145,37 +169,47 @@ def kernel_d(cs, cards, payload) -> tuple[dict, list]:
     def library():
         total = comm.reduce_add(parts, destination=0)
         return comm.broadcast(total, devices=cards)
-    library()
+    timed(lambda: [library() for _ in range(RING_REPS)])
     _, t_lib = timed(lambda: [library() for _ in range(RING_REPS)])
     R = payload.shape[1]
-    bound, by = ring_bound(R, len(cards))
+    bound, by, link = cs.ring_least_ms(ma, "dp", R, list(range(len(cards))),
+                                       0)
     row = dict(name="ring_all_reduce across cards", launches=launches,
                ms_per_card=per_card, host_ms=host,
+               host_ms_tables_rebuilt=host_miss,
                wall_ms=1e3 * t_wall / RING_REPS, plain_ms=1e3 * t_plain / 5,
                library_ms=1e3 * t_lib / RING_REPS, bound_ms=bound,
-               bound_by=by, bit_equal=same)
+               bound_by=f"{by} ({link})", bit_equal=same, events=len(events))
     print(f"(a) kernel D over {len(cards)} cards in one process, "
           f"({len(cards)}, {R}, 128) along dp ({4 * R * 128 / 1e6:.2f} MB a "
-          f"rank): {launches} launches a call (one a card); bit for bit the "
-          f"one-card launch and the plain version: {same}; device ms a call "
-          f"per card (CUDA events, the streams held until every call was "
-          f"queued) {', '.join(f'{v:.4f}' for v in per_card)}; host ms a "
-          f"call {host:.4f} (enqueue), {row['wall_ms']:.4f} back to back "
-          f"with every card synchronized at the ends; bound {bound:.6f} ms "
-          f"({by}); plain {row['plain_ms']:.3f} ms; reduce_add + broadcast "
-          f"{row['library_ms']:.4f} ms")
-    if not same:
+          f"rank), the owner form: {launches} launches a call (one a card), "
+          f"{len(events)} CUDA events made by a call; bit for bit the "
+          f"one-card launch and the plain version: {same}")
+    print(f"(a) ms a call: device per card "
+          f"{', '.join(f'{v:.4f}' for v in per_card)} (CUDA events, the "
+          f"streams held until every call was queued; the least, "
+          f"{min(per_card):.4f}, is the card that started last, the others "
+          f"waited for it in their first call) | bound {bound:.6f} "
+          f"({by}, {link}) | host enqueue {host:.4f}, with the tables "
+          f"rebuilt every call {host_miss:.4f} | back to back, every "
+          f"card synchronized at the ends {row['wall_ms']:.4f} | reduce_add "
+          f"+ broadcast {row['library_ms']:.4f} | plain {row['plain_ms']:.3f}")
+    if not (same and same_miss):
         missed.append("(a) kernel D across cards differs from the one-card "
                       "launch")
     if launches != len(cards):
         missed.append(f"(a) kernel D launched {launches} times, not "
                       f"{len(cards)}")
+    if events:
+        missed.append(f"(a) a call of kernel D across cards made "
+                      f"{len(events)} CUDA events")
     return row, missed
 
 
 def sharded_ba(cs, cards, ba, counters) -> tuple[dict, list]:
     """(b): the sharded BA over the cards."""
     import torch
+    from stereovision_slam_torch.parallel import ring_reduce as rr
     from stereovision_slam_torch.parallel.mesh import make_ba_mesh
     from stereovision_slam_torch.parallel.sharded_ba import build_sharded_ba
     from stereovision_slam_torch.slam.backend import optimize_window
@@ -198,16 +232,25 @@ def sharded_ba(cs, cards, ba, counters) -> tuple[dict, list]:
             run = build_sharded_ba(mesh, K, F, L, reduce_impl=impl, **kw)
             for mod in counters.values():
                 mod.launch_count = 0
+            rr.owned_launch_count = 0
             records = []
             with cs.ranks_held(records):
                 (k, lm), _ = timed(lambda: run(m, cl, cr))
             n_d = counters["ring_all_reduce"].launch_count
+            n_owned = rr.owned_launch_count
+            route = rr._card_routes.get(tuple(c.index for c in cards))
+            looked = (route.hits, route.misses) if route else (0, 0)
             _, t = timed(lambda: run(m, cl, cr))
+            if route is not None:
+                looked = (route.hits - looked[0], route.misses - looked[1])
             held = bool(records) and all(r["equal"] for r in records)
             bits = torch.equal(k, k1) and torch.equal(lm, l1)
             print(f"(b) sharded BA over {len(cards)} cards ({dp}, {mp}) "
                   f"{impl}: {1e3 * t:.1f} ms a call (one card, the same "
-                  f"split: {1e3 * t1:.1f} ms); kernel D launches {n_d}, "
+                  f"split: {1e3 * t1:.1f} ms); kernel D launches {n_d} "
+                  f"({n_owned} of the owner form), "
+                  f"packed tables on the timed call: {looked[0]} hits, "
+                  f"{looked[1]} misses; "
                   f"{len(records)} calls held to the plain version: "
                   f"{held if impl == 'ring' else 'none made'}; bit for bit "
                   f"the one-card run: {bits}")
@@ -220,9 +263,14 @@ def sharded_ba(cs, cards, ba, counters) -> tuple[dict, list]:
                 if not ok:
                     missed.append(f"(b) {msg}")
             want = kw["iters"] * len(cards) if impl == "ring" else 0
-            if n_d != want or (impl == "ring" and not held):
+            if n_d != want or n_owned != want or (impl == "ring"
+                                                  and not held):
                 missed.append(f"(b) ({dp}, {mp}) {impl}: kernel D launched "
-                              f"{n_d} times (want {want}), held {held}")
+                              f"{n_d} times, {n_owned} of the owner form "
+                              f"(want {want}), held {held}")
+            if impl == "ring" and not bits:
+                missed.append(f"(b) ({dp}, {mp}) ring is not the one-card "
+                              "run bit for bit")
             if k.device != cards[0]:
                 missed.append(f"(b) the result is on {k.device}")
     return refs, missed
@@ -398,18 +446,22 @@ def nccl_worker(rank: int, world: int, port: int, tmp: str) -> None:
     def ring():
         return rr.ring_all_reduce_flat(x, "dp", ma, ring_mesh)
     out["ring"] = ring().cpu()
-    rr.trace = []
+    timed(lambda: [ring() for _ in range(RING_REPS)])   # the allocator warm
     _, t = timed(lambda: [ring() for _ in range(RING_REPS)])
-    out["ring_device_ms"] = [v["device_ms"] for v in rr.trace]
-    out["ring_sync_ms"] = [v["sync_ms"] for v in rr.trace]
-    rr.trace = None
     out["ring_host_ms"] = 1e3 * t / RING_REPS
+    rr.trace = []
+    timed(lambda: [ring() for _ in range(RING_REPS)])
+    traced = rr.read_trace()
+    out["ring_device_ms"] = [v["device_ms"] for v in traced]
+    out["ring_sync_ms"] = [v["sync_ms"] for v in traced]
+    rr.trace = None
 
     def nccl():
         y = x.clone()
         dist.all_reduce(y)
         return y
     out["nccl_err"] = float((nccl() - out["ring"].to(dev)).abs().max())
+    timed(lambda: [nccl() for _ in range(RING_REPS)])
     _, t = timed(lambda: [nccl() for _ in range(RING_REPS)])
     out["nccl_ms"] = 1e3 * t / RING_REPS
 
@@ -419,11 +471,16 @@ def nccl_worker(rank: int, world: int, port: int, tmp: str) -> None:
     mesh = make_ba_mesh(world, dp=2, mp=2)
     for impl in ("ring", "xla"):
         run = build_sharded_ba(mesh, K, F, L, reduce_impl=impl, **inp["kw"])
-        rr.launch_count = 0
+        rr.launch_count = rr.owned_launch_count = 0
         (kf, lm), _ = timed(lambda: run(m, cl, cr))
         out[f"launches_{impl}"] = rr.launch_count
+        out[f"owned_{impl}"] = rr.owned_launch_count
         out[f"kf_{impl}"], out[f"lm_{impl}"] = kf.cpu(), lm.cpu()
+        routes = [e["route"] for e in rr._peer_cache.values() if e["route"]]
+        looked = [sum(r.hits for r in routes), sum(r.misses for r in routes)]
         _, t = timed(lambda: run(m, cl, cr))
+        out[f"tables_{impl}"] = [sum(r.hits for r in routes) - looked[0],
+                                 sum(r.misses for r in routes) - looked[1]]
         out[f"ms_{impl}"] = 1e3 * t
     g = PoseGraph(*(None if t is None else t.to(dev) for t in inp["g"]))
     pgo = build_sharded_pgo(make_ba_mesh(world))
@@ -480,24 +537,27 @@ def nccl_processes(cs, payload, one, ba, refs, pgo) -> tuple[dict, list]:
     dev_ms = [v for r in res for v in r["ring_device_ms"]]
     sync_ms = [v for r in res for v in r["ring_sync_ms"]]
     R = payload.shape[1]
-    bound, by = ring_bound(R, CARDS)
+    bound, by, link = cs.ring_least_ms((("dp", CARDS), ("mp", 1)), "dp", R,
+                                       list(range(CARDS)), 0)
     row = dict(name="ring_all_reduce across processes, one card each",
                launches=sum(r["launches_ring"] for r in res),
                device_ms=float(np.median(dev_ms)),
                sync_ms=float(np.median(sync_ms)),
                host_ms=float(np.mean([r["ring_host_ms"] for r in res])),
                library_ms=float(np.mean([r["nccl_ms"] for r in res])),
-               bound_ms=bound, bound_by=by, bit_equal=same)
+               bound_ms=bound, bound_by=f"{by} ({link})", bit_equal=same)
     print(f"(g) {CARDS} processes, backends {[r['backend'] for r in res]}, "
           f"on {[r['device'] for r in res]}, {time.perf_counter() - t0:.1f} "
           f"s from spawn to exit; kernel D across the processes on "
           f"({CARDS}, {R}, 128) along dp bit for bit the one-card launch: "
-          f"{same}; device ms a launch (CUDA events) median "
-          f"{row['device_ms']:.4f}, min {min(dev_ms):.4f}; bound "
-          f"{bound:.6f} ms ({by}); synchronizes and barriers median "
-          f"{row['sync_ms']:.3f} ms; a call {row['host_ms']:.3f} ms (host "
-          f"clock); NCCL all_reduce {row['library_ms']:.4f} ms a call (up "
-          f"to {max(r['nccl_err'] for r in res):.2e} from kernel D's sums)")
+          f"{same}")
+    print(f"(g) ms: device a launch (CUDA events, {RING_REPS} calls a "
+          f"process) median {row['device_ms']:.4f}, min {min(dev_ms):.4f} | "
+          f"bound {bound:.6f} ({by}, {link}) | host synchronizes and "
+          f"barriers median {row['sync_ms']:.3f} | a call on the host clock "
+          f"{row['host_ms']:.4f} | NCCL all_reduce {row['library_ms']:.4f} "
+          f"a call (up to {max(r['nccl_err'] for r in res):.2e} from "
+          f"kernel D's sums)")
     if not same:
         missed.append("(g) kernel D across processes differs from the "
                       "one-card launch")
@@ -506,18 +566,26 @@ def nccl_processes(cs, payload, one, ba, refs, pgo) -> tuple[dict, list]:
     iters = ba["kw"]["iters"]
     for impl in ("ring", "xla"):
         k1, l1 = refs[(2, 2, impl)]
+        kf, lm = res[0][f"kf_{impl}"].to(dev), res[0][f"lm_{impl}"].to(dev)
         ok, msg = ba["compare"](f"(g) four processes {impl} vs the one-card "
-                                "run", res[0][f"kf_{impl}"].to(dev),
-                                res[0][f"lm_{impl}"].to(dev), k1, l1,
-                                cs.SHARD_RING_TOL)
+                                "run", kf, lm, k1, l1, cs.SHARD_RING_TOL)
+        bits = torch.equal(kf, k1) and torch.equal(lm, l1)
         print(f"(g) sharded BA over four processes ({impl}) "
               f"{np.mean([r[f'ms_{impl}'] for r in res]):.1f} ms a call, "
               f"kernel D launches per process "
-              f"{[r[f'launches_{impl}'] for r in res]}")
+              f"{[r[f'launches_{impl}'] for r in res]} (owner form "
+              f"{[r[f'owned_{impl}'] for r in res]}), packed tables on the "
+              f"timed call (hits, misses) "
+              f"{[r[f'tables_{impl}'] for r in res]}; bit for bit the "
+              f"one-card run: {bits}")
         if not ok:
             missed.append(msg)
+        if impl == "ring" and not bits:
+            missed.append("(g) the four-process ring BA is not the one-card "
+                          "run bit for bit")
         want = iters if impl == "ring" else 0
-        if any(r[f"launches_{impl}"] != want for r in res):
+        if any(r[f"launches_{impl}"] != want or r[f"owned_{impl}"] != want
+               for r in res):
             missed.append(f"(g) {impl}: kernel D launches "
                           f"{[r[f'launches_{impl}'] for r in res]}, not "
                           f"{want} a process")
