@@ -157,6 +157,12 @@ Phases, in order; any failure exits non-zero:
      and "xla", within SHARD_RING_TOL of the tensor-axis route at the same
      split; the sharded PGO over the four ranks on phase 12's graph within
      PGO_SHARD_TOL of the single solve; wall times beside phases 11-12.
+ 23. the recorder (`utils/profiling.py`) on the loop path over TRACE_T
+     frames of the long circuit: the traced run's poses bit for bit the
+     untraced run's, each keyframe frame's device spans positive and
+     within its host-to-synchronize window, and with the recorder off
+     each graph's kernels per replay those of a capture with every
+     recorder call stubbed out (`tests/torch_tracing.py` runs it alone).
 
 Phases 2, 3 and 6 also check the sizes the kernels once refused (kernel
 A's windows 21 and 31, kernel B at 2048 points, kernel C's patch 21) and
@@ -3731,6 +3737,103 @@ def training_phase(tmp: str, dev, shipped) -> list:
     return missed
 
 
+TRACE_T = 200    # phase 23: frames of the traced and untraced loop runs
+
+
+def tracing_run(scene, dev, params, traced: bool, n: int | None = None):
+    """`ScanLoopVisualOdometry` (chunks of 1) over the scene's first n
+    (TRACE_T) frames, each frame handed over and synchronized on the host
+    clock, the recorder on where `traced`. Returns (poses (n, 3, 4), per-frame ms,
+    the pipeline, the recorder's records or None)."""
+    import numpy as np
+    import torch
+
+    from stereovision_slam_torch.slam.fused_loop import (
+        ScanLoopVisualOdometry)
+    from stereovision_slam_torch.utils import profiling
+
+    n = n or TRACE_T
+    lefts, rights, _, _, rig = scene
+    ld = torch.as_tensor(lefts[:n], device=dev)
+    rd = torch.as_tensor(rights[:n], device=dev)
+    vo = loop_vo(ScanLoopVisualOdometry, lefts[:n], rights[:n], rig, dev,
+                 params, chunk_size=1, max_frames=n + 8)
+    profiling.reset()
+    if traced:
+        profiling.enable()
+    try:
+        ms = []
+        for t in range(n):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            vo.step_chunk(ld[t:t + 1], rd[t:t + 1], None, np.ones(1, bool),
+                          host_fids=[t], n=1)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - a))
+        records = profiling.read() if traced else None
+    finally:
+        profiling.disable()
+        profiling.reset()
+    return vo.out_buf.pose[:n].cpu().numpy(), ms, vo, records
+
+
+def tracing_phase(scene, dev, params) -> list:
+    """Phase 23: the recorder on the card. The loop path over TRACE_T
+    frames untraced twice and traced once: the traced poses equal the
+    untraced ones bit for bit; in each keyframe frame every device span
+    reads a positive time and they sum to no more than the frame's
+    host-to-synchronize window; with the recorder off each graph launches
+    per replay the kernels of the same graph captured with every recorder
+    call stubbed out (the program before the recorder). Returns the gates
+    missed."""
+    import numpy as np
+
+    from tests.torch_tracing import graph_kernels, stubbed_recorder
+    from stereovision_slam_torch.utils import profiling
+
+    missed = []
+    t0 = time.perf_counter()
+    p_off, ms_off, vo_off, _ = tracing_run(scene, dev, params, False)
+    p_off2, _, _, _ = tracing_run(scene, dev, params, False)
+    p_on, ms_on, vo_on, rec = tracing_run(scene, dev, params, True)
+    print(f"phase 23: three {TRACE_T}-frame loop runs in "
+          f"{time.perf_counter() - t0:.1f} s; median frame ms untraced "
+          f"{np.median(ms_off):.3f}, traced {np.median(ms_on):.3f}; "
+          f"untraced runs bit-equal: {np.array_equal(p_off, p_off2)}")
+    if not np.array_equal(p_on, p_off):
+        gap = float(np.abs(p_on - p_off).max())
+        missed.append(f"traced poses differ from untraced by {gap:.3e}")
+    kf = {}
+    for d in rec["device_spans"]:
+        kf.setdefault(d["request"][1], []).append(d)
+    worst, bad = 0.0, []
+    for fid, ds in kf.items():
+        tot = sum(d["ms"] for d in ds)
+        worst = max(worst, tot / ms_on[fid])
+        bad += [(fid, d["name"], d["ms"]) for d in ds if not d["ms"] > 0]
+        if tot > ms_on[fid]:
+            missed.append(f"frame {fid}: device spans {tot:.3f} ms over its "
+                          f"window {ms_on[fid]:.3f} ms")
+    print(f"phase 23: {len(kf)} frames with device spans, "
+          f"{len(rec['device_spans'])} spans; the largest share of a "
+          f"frame's window they cover {worst:.3f}")
+    if bad or not kf:
+        missed.append(f"device spans not positive: {bad[:5]}")
+    off = graph_kernels(vo_off)
+    on = graph_kernels(vo_on)
+    with stubbed_recorder():
+        _, _, vo_stub, _ = tracing_run(scene, dev, params, False)
+    stub = graph_kernels(vo_stub)
+    print(f"phase 23: device kernels per replay, recorder off {off}, on "
+          f"{on}, recorder calls stubbed {stub}")
+    for k in set(off) & set(stub):
+        if off[k] != stub[k]:
+            missed.append(f"graph {k}: {off[k]} kernels a replay with the "
+                          f"recorder off, {stub[k]} without the recorder")
+    print(profiling.report(rec))
+    return missed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", type=int, default=0,
@@ -3956,6 +4059,8 @@ def main() -> int:
         by_path["per_rank_ba"], kernels[-1]["per_rank"], failed = \
             per_rank_phase(ba_keep, pgo_keep, counters, dev)
         missed += failed
+        # 23. the recorder's spans and counters inside the loop path
+        missed += tracing_phase(scenes_loop["circuit_long"], dev, params)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if args.profile:

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from stereovision_slam_torch.ops import _cuda
 from stereovision_slam_torch.ops.image import floor_int
+from stereovision_slam_torch.utils import profiling
 
 # Per-level margins (pixels each side a point may travel within one level).
 _MARGINS_X = (10, 14, 18, 26)
@@ -329,6 +330,18 @@ def lk_pyramid(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks, *,
                                 initial_pts, masks, **kw)
     if dev.type != "cuda":
         raise ValueError(f"lk_pyramid: unsupported device {dev}")
+    with profiling.span("kernel.A"):
+        return _lk_pyramid_cuda(tmpl_pyramids, tgt_pyramids, pts,
+                                initial_pts, masks, **kw)
+
+
+def _lk_pyramid_cuda(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks,
+                     *, win_size, max_iters, eps, min_eig_threshold):
+    """`lk_pyramid` on CUDA tensors: checks, outputs, one launch, and the
+    recorder's counters of the launch (`profiling.kernel_launch`: its
+    iterations summed over points and levels are the data-dependent
+    work)."""
+    dev = pts.device
     G, N, _ = pts.shape
     n = G * N
     L = len(tmpl_pyramids)
@@ -375,6 +388,11 @@ def lk_pyramid(tmpl_pyramids, tgt_pyramids, pts, initial_pts, masks, *,
                  status.data_ptr(), rows.data_ptr(), n, N, pad, win_size,
                  max_iters, 0.5 ** (L - 1), float(eps * eps),
                  float(min_eig_threshold))
+    if profiling.enabled():
+        profiling.kernel_launch(
+            "A", f"L{L}.n{n}.win{win_size}",
+            levels + [pts_c, init_c, masks_c, uv, status, rows],
+            iterations=rows[:, :, 5].sum())
     return uv, status, rows
 
 

@@ -41,6 +41,7 @@ import torch
 
 from stereovision_slam_torch.geometry import se3
 from stereovision_slam_torch.ops import _cuda
+from stereovision_slam_torch.utils import profiling
 
 MAX_STARTS = 8     # csrc/pose_lm.cu kMaxStarts; any number of points
 launch_count = 0
@@ -265,6 +266,16 @@ def pose_lm(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *, chi2_th: float,
         return pose_lm_plain(*args, **kw, trace=trace)
     if pts.device.type != "cuda":
         raise ValueError(f"pose_lm: unsupported device {pts.device}")
+    with profiling.span("kernel.B"):
+        return _pose_lm_cuda(args, trace, **kw)
+
+
+def _pose_lm_cuda(args, trace, *, chi2_th, rounds, iters) -> PoseSolve:
+    """`pose_lm` on CUDA tensors: checks, outputs, one launch, and the
+    recorder's counters of the launch (`profiling.kernel_launch`: its valid
+    observations, which every start's passes read, are the
+    data-dependent work)."""
+    camp, pts, uv_l, uv_r, valid_l, valid_r, T0 = args
     lead = pts.shape[:-2]
     F, S = pts.shape[-2], T0.shape[-3]
     B = int(lead.numel())
@@ -306,6 +317,10 @@ def pose_lm(camp, pts, uv_l, uv_r, valid_l, valid_r, T0, *, chi2_th: float,
     _cuda.launch(fn, "pose_lm", pts, *(t.data_ptr() for t in args),
                  *(t.data_ptr() for t in out), *tr, B, F, S, rounds, iters,
                  float(chi2_th))
+    if profiling.enabled():
+        profiling.kernel_launch(
+            "B", f"S{S}.r{rounds}.i{iters}", list(args) + list(out),
+            observations=valid_l.sum() + valid_r.sum())
     return out
 
 

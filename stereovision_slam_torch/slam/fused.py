@@ -37,6 +37,7 @@ from stereovision_slam_torch.slam import map_state as mapmod
 from stereovision_slam_torch.slam.backend import optimize_window
 from stereovision_slam_torch.slam.config import SlamConfig
 from stereovision_slam_torch.slam.graphs import GraphRunner, write
+from stereovision_slam_torch.utils import profiling
 
 
 class ArchiveState(NamedTuple):
@@ -204,7 +205,8 @@ def init_branch(fs, ms, arc, pyr, right_pyr, ids: KeyframeIds, cam_left,
     fs2, ms2, _, n_new, n_r = fe.keyframe_step(
         fresh_state(fs, pyr, ident, ident), ms, right_pyr, cam_left,
         cam_right, ids.frame_id, ids.kf_id, detect_all=True, **_kf_kw(s))
-    ok = int(n_new) >= s["num_features_init"]
+    ok = profiling.host_read("new_landmarks", n_new, int) \
+        >= s["num_features_init"]
     if ok:
         ms, arc = ms2, _record_keyframe(arc, ids.slot, fs2.T_cur,
                                         ids.frame_id)
@@ -229,19 +231,27 @@ def keyframe_branch(fs1, ms, arc, right_pyr, ids: KeyframeIds, cam_left,
     BA pass over the window (the current pose then taken from it). Returns
     (fs, ms, arc with the eviction folded in, the keyframe's odometry
     measurement); `finish_keyframe` completes the archive after the
-    keyframe hook."""
-    fs2, ms2, ev, _, _ = fe.keyframe_step(
-        fs1, ms, right_pyr, cam_left, cam_right, ids.frame_id, ids.kf_id,
-        detect_all=False, **_kf_kw(s))
+    keyframe hook. The recorder's device spans: `kf.frontend`, `kf.ba`,
+    `kf.archive`; its device counters `ba.passes` and `ba.lm_overflow`
+    (the landmarks BA's compaction left out)."""
+    with profiling.device_span("kf.frontend"):
+        fs2, ms2, ev, _, _ = fe.keyframe_step(
+            fs1, ms, right_pyr, cam_left, cam_right, ids.frame_id, ids.kf_id,
+            detect_all=False, **_kf_kw(s))
     if run_ba:
-        ms2, _ = optimize_window(ms2, cam_left, cam_right,
-                                 chi2_th=s["chi2_th"], iters=s["ba_iters"],
-                                 max_active_landmarks=s["ba_max_active"])
-        newest = torch.argmax(torch.where(ms2.kf_valid, ms2.kf_id,
-                                          torch.full_like(ms2.kf_id, -1)))
-        fs2 = fs2._replace(T_cur=mapmod.row(ms2.kf_pose, newest))
-    rel_new = _rel_to_prev(fs2.T_cur, ids.kf_id, ms2, ev, arc)
-    return fs2, ms2, _archive_eviction(arc, ev), rel_new
+        with profiling.device_span("kf.ba"):
+            ms2, stats = optimize_window(
+                ms2, cam_left, cam_right, chi2_th=s["chi2_th"],
+                iters=s["ba_iters"], max_active_landmarks=s["ba_max_active"])
+            newest = torch.argmax(torch.where(ms2.kf_valid, ms2.kf_id,
+                                              torch.full_like(ms2.kf_id, -1)))
+            fs2 = fs2._replace(T_cur=mapmod.row(ms2.kf_pose, newest))
+        profiling.device_count("ba.passes", 1, device=stats[3].device)
+        profiling.device_count("ba.lm_overflow", stats[3])
+    with profiling.device_span("kf.archive"):
+        rel_new = _rel_to_prev(fs2.T_cur, ids.kf_id, ms2, ev, arc)
+        arc = _archive_eviction(arc, ev)
+    return fs2, ms2, arc, rel_new
 
 
 def finish_keyframe(arc, fs, ms, ids: KeyframeIds, rel_new) -> ArchiveState:
@@ -261,7 +271,8 @@ def lost_branch(fs, ms, arc, pyr, right_pyr, ids: KeyframeIds, cam_left,
     fs2, ms2, ev, n_new, _ = fe.keyframe_step(
         fs_r, ms, right_pyr, cam_left, cam_right, ids.frame_id, ids.kf_id,
         detect_all=True, **_kf_kw(s))
-    ok = int(n_new) >= s["num_features_init"]
+    ok = profiling.host_read("new_landmarks", n_new, int) \
+        >= s["num_features_init"]
     if ok:
         fs_out, ms_out = fs2, ms2
         arc2 = _archive_eviction(arc, ev)
@@ -329,7 +340,7 @@ def fused_step(fs: fe.FrontendState, ms: mapmod.MapState, arc: ArchiveState,
 
     fs1, n_in, n_tracked = track_branch(fs, ms, pyr, right_pyr, cam_left,
                                         cam_right, camp=camp, **s)
-    n_in_host = int(n_in)
+    n_in_host = profiling.host_read("inliers", n_in, int)
     lost = n_in_host <= bad_threshold
     want_kf = n_in_host < kf_threshold and not lost
     kf_id = kf_count + 1
@@ -375,6 +386,7 @@ class FusedVisualOdometry:
         self._outs: list[FrameOutputs] = []
         self.fs = self.ms = self.arc = None
         self.kf_count = -1
+        self.trace_id = profiling.pipeline_id()   # the recorder's requests
 
     def initialize(self):
         self.dataset.initialize()
@@ -421,8 +433,10 @@ class FusedVisualOdometry:
                 self.cfg.max_features,
                 imops.build_pyramid(torch.zeros_like(left),
                                     self.cfg.lk_num_levels))
-        out = self._advance(left, right, int(frame.frame_id))
-        self._fids.append(int(frame.frame_id))
+        fid = int(frame.frame_id)
+        with profiling.span("frame", request=(self.trace_id, fid)):
+            out = self._advance(left, right, fid)
+        self._fids.append(fid)
         self._outs.append(out)
         return True
 
@@ -649,9 +663,11 @@ class ScanVisualOdometry(FusedVisualOdometry):
             if not ok[i]:
                 self._pad_row(row)
                 continue
-            self._left.copy_(lefts[i])
-            self._right.copy_(rights[i])
-            self._frame(int(host_fids[i]), row)
+            fid = int(host_fids[i])
+            with profiling.span("frame", request=(self.trace_id, fid)):
+                self._left.copy_(lefts[i])
+                self._right.copy_(rights[i])
+                self._frame(fid, row)
         self._fids.extend(int(f) for f in host_fids[:n])
 
     def _set_ids(self, frame_id: int, kf_id: int, row: int) -> None:
@@ -674,7 +690,8 @@ class ScanVisualOdometry(FusedVisualOdometry):
             self._init_frame()
             return
         self.runner.run("track", self._track_graph)
-        n_in = int(self._n_in)               # the frame's one host read
+        # the frame's one host read
+        n_in = profiling.host_read("inliers", self._n_in, int)
         lost = n_in <= s["bad_threshold"]
         if lost:
             self._lost_frame()
@@ -689,17 +706,19 @@ class ScanVisualOdometry(FusedVisualOdometry):
                 for k, v in vals.items()]
 
     def _init_frame(self) -> None:
+        """The eager stereo initialization (a `drive.init` span)."""
         s = self._static
-        pyr, right_pyr = frame_pyramids(self._left, self._right,
-                                        s["num_levels"])
-        fs, ms, arc, kfc, out = init_branch(
-            self.fs, self.ms, self.arc, pyr, right_pyr, self._kf_ids(),
-            self.cam_left, self.cam_right, **s)
-        write([(self.fs, fs), (self.ms, ms), (self.arc, arc)]
-              + self._out_row(n_inliers=out.n_inliers,
-                              n_tracked=out.n_tracked,
-                              kf_inserted=out.kf_inserted, kf_count=kfc,
-                              pose=out.pose))
+        with profiling.span("drive.init"):
+            pyr, right_pyr = frame_pyramids(self._left, self._right,
+                                            s["num_levels"])
+            fs, ms, arc, kfc, out = init_branch(
+                self.fs, self.ms, self.arc, pyr, right_pyr, self._kf_ids(),
+                self.cam_left, self.cam_right, **s)
+            write([(self.fs, fs), (self.ms, ms), (self.arc, arc)]
+                  + self._out_row(n_inliers=out.n_inliers,
+                                  n_tracked=out.n_tracked,
+                                  kf_inserted=out.kf_inserted, kf_count=kfc,
+                                  pose=out.pose))
         self.kf_count = kfc
 
     def _track_graph(self) -> list:

@@ -12,7 +12,8 @@ global pose-graph optimization over the odometry and loop edges.
 
 The reference's two `lax.cond`s are host branches here: one device->host
 read of the candidate gate per keyframe and, when a candidate fires, one of
-the correction gate (`hook_reads` counts them). The hook is four stages of
+the correction gate (`hook_reads` counts them, through
+`utils/profiling.host_read`). The hook is four stages of
 tensors split at those reads (`hook_candidates`, `hook_attempt`,
 `hook_correct`, `hook_insert`), which `ScanLoopVisualOdometry` replays as
 CUDA graphs; the shutdown PGO replays one through `PoseGraphSolver`.
@@ -36,6 +37,7 @@ from stereovision_slam_torch.slam.config import SlamConfig
 from stereovision_slam_torch.slam.pnp import pnp_ransac
 from stereovision_slam_torch.slam.pose_graph import (
     PoseGraph, PoseGraphSolver, reanchor_landmarks)
+from stereovision_slam_torch.utils import profiling
 
 EMBED_DIM = mnv2.EMBED_DIM      # 1280
 
@@ -150,7 +152,9 @@ def empty_scratch(F: int, dtype=torch.float32, device="cpu") -> HookScratch:
 
 # The loop hook in four stages, split at its two host reads (the candidate
 # gate and the correction gate); each reads and writes tensors only, the
-# keyframe id a 0-d integer tensor.
+# keyframe id a 0-d integer tensor. The recorder's device spans: hook.embed,
+# hook.orb, hook.scan in stage 1, and one a stage around the calls of the
+# others (hook.attempt, hook.correct, hook.insert).
 
 def hook_candidates(ls: LoopState, fs, left_img, kf_id, *, place_params,
                     skip: int, cooldown: int, strong: float, weak: float,
@@ -160,23 +164,27 @@ def hook_candidates(ls: LoopState, fs, left_img, kf_id, *, place_params,
     latest score, emb, desc, desc_ok, best, candidate_ok)."""
     dev = left_img.device
     Tdb = ls.db_embed.shape[0]
-    emb = embed(place_params, left_img)
-    desc, desc_ok = descriptors.compute(left_img, fs.feat_uv, fs.feat_valid,
-                                        pattern=ls.pattern)
-    ids = torch.arange(Tdb, device=dev)
-    mask = ls.db_valid & (kf_id - ids >= skip)
-    sims = torch.where(mask, ls.db_embed @ emb,
-                       torch.full((), float("-inf"), device=dev))
-    best = torch.argmax(sims)
-    best_sim = mapmod.row(sims, best)
-    weak_count = torch.sum(sims > weak)
-    in_cooldown = (ls.last_closed >= 0) & (kf_id - ls.last_closed <= cooldown)
-    has_any = torch.any(mask)
-    candidate_ok = (has_any & ~in_cooldown & (best_sim >= strong)
-                    & (weak_count <= max_weak))
-    ls = ls._replace(last_score=torch.clamp(torch.where(
-        has_any, best_sim, torch.zeros_like(best_sim)), min=0.0).to(
-            ls.last_score.dtype))
+    with profiling.device_span("hook.embed"):
+        emb = embed(place_params, left_img)
+    with profiling.device_span("hook.orb"):
+        desc, desc_ok = descriptors.compute(left_img, fs.feat_uv,
+                                            fs.feat_valid, pattern=ls.pattern)
+    with profiling.device_span("hook.scan"):
+        ids = torch.arange(Tdb, device=dev)
+        mask = ls.db_valid & (kf_id - ids >= skip)
+        sims = torch.where(mask, ls.db_embed @ emb,
+                           torch.full((), float("-inf"), device=dev))
+        best = torch.argmax(sims)
+        best_sim = mapmod.row(sims, best)
+        weak_count = torch.sum(sims > weak)
+        in_cooldown = ((ls.last_closed >= 0)
+                       & (kf_id - ls.last_closed <= cooldown))
+        has_any = torch.any(mask)
+        candidate_ok = (has_any & ~in_cooldown & (best_sim >= strong)
+                        & (weak_count <= max_weak))
+        ls = ls._replace(last_score=torch.clamp(torch.where(
+            has_any, best_sim, torch.zeros_like(best_sim)), min=0.0).to(
+                ls.last_score.dtype))
     return ls, emb, desc, desc_ok, best, candidate_ok
 
 
@@ -276,31 +284,30 @@ def hook_insert(ls: LoopState, fs, ms, emb, desc, desc_ok, kf_id):
 
 
 def _loop_hook(ls: LoopState, fs, ms, pyr, frame_id, kf_id, arc, *,
-               stats=None, **gates):
+               reads=None, **gates):
     """The keyframe-rate loop-closure pipeline (the reference's
     `_loop_hook`); `fused.fused_step`'s `kf_hook` with the gates bound
     (`cam_left`, `place_params` and the gate values of `_hook`): the four
     stages above with the two gates read on the host between them. `arc`
     is part of the hook contract and unused: the candidate's tables are
     its insertion-time snapshots, as in the reference. `kf_id` an int or a
-    0-d integer tensor. `stats`, a dict, counts the hook's device->host
-    reads under "host_reads". Returns (fs, ms, ls)."""
+    0-d integer tensor. `reads`, a dict, counts the hook's device->host
+    reads by name (`profiling.host_read`). Returns (fs, ms, ls)."""
     left_img = pyr[0]
     kf_id = torch.as_tensor(kf_id, device=left_img.device)
-
-    def host_bool(x) -> bool:
-        if stats is not None:
-            stats["host_reads"] = stats.get("host_reads", 0) + 1
-        return bool(x)
-
     ls, emb, desc, desc_ok, best, candidate_ok = hook_candidates(
         ls, fs, left_img, kf_id, **gates)
-    if host_bool(candidate_ok):
-        ls, idx, fuse, T_corr, need_corr = hook_attempt(
-            ls, fs, desc, desc_ok, best, kf_id, **gates)
-        if host_bool(need_corr):
-            fs, ms = hook_correct(fs, ms, ls, best, idx, fuse, T_corr)
-    return fs, ms, hook_insert(ls, fs, ms, emb, desc, desc_ok, kf_id)
+    span = profiling.device_span
+    if profiling.host_read("hook.candidate", candidate_ok, bool, reads):
+        with span("hook.attempt"):
+            ls, idx, fuse, T_corr, need_corr = hook_attempt(
+                ls, fs, desc, desc_ok, best, kf_id, **gates)
+        if profiling.host_read("hook.correction", need_corr, bool, reads):
+            with span("hook.correct"):
+                fs, ms = hook_correct(fs, ms, ls, best, idx, fuse, T_corr)
+    with span("hook.insert"):
+        ls = hook_insert(ls, fs, ms, emb, desc, desc_ok, kf_id)
+    return fs, ms, ls
 
 
 class LoopEdgeRecord(NamedTuple):
@@ -329,20 +336,20 @@ class FusedLoopVisualOdometry(fused.FusedVisualOdometry):
         self.max_loop_edges = max_loop_edges
         self.num_hypotheses = num_hypotheses
         self.ls: LoopState | None = None
-        self.hook_stats: dict = {"host_reads": 0}
+        self.reads: dict = {}       # the hook's host reads, by name
         self.pgo = None
 
     def initialize(self):
         super().initialize()
         self.ls = empty_loop_state(self.Tmax, self.cfg.max_features,
                                    self.max_loop_edges, device=self.device)
-        self.hook_stats = {"host_reads": 0}
+        self.reads = {}
         self.pgo = PoseGraphSolver(self.device)
 
     @property
     def hook_reads(self) -> int:
         """Device->host reads the loop hook made so far."""
-        return self.hook_stats["host_reads"]
+        return sum(self.reads.values())
 
     def _hook(self):
         cfg = self.cfg
@@ -357,7 +364,7 @@ class FusedLoopVisualOdometry(fused.FusedVisualOdometry):
             min_pose_diff=cfg.min_pose_differnece_between_old_new,
             max_pose_diff=cfg.max_pose_differnece_between_old_new,
             max_loop_dist=cfg.max_pose_distance_between_loop_keyframes,
-            num_hypotheses=self.num_hypotheses, stats=self.hook_stats)
+            num_hypotheses=self.num_hypotheses, reads=self.reads)
 
     def _advance(self, left, right, frame_id: int):
         (self.fs, self.ms, self.arc, self.kf_count, self.ls,
@@ -472,9 +479,17 @@ class FusedLoopVisualOdometry(fused.FusedVisualOdometry):
         padded size). Keyframe poses are written back and landmarks
         re-anchored through their first observing keyframe
         (`pgo_keyframes`, `pgo_landmarks`). Returns {frame_id: (3, 4)
-        pose}."""
-        keyframes, landmarks, _ = self.drain()
-        problem = self.pose_graph(keyframes)
+        pose}. The recorder's spans: `pgo` around `pgo.drain`,
+        `pgo.assemble`, `pgo.solve` (to the poses on the host) and
+        `pgo.reanchor`."""
+        with profiling.span("pgo", request=(self.trace_id, None)):
+            return self._run_pgo(iters)
+
+    def _run_pgo(self, iters: int):
+        with profiling.span("pgo.drain"):
+            keyframes, landmarks, _ = self.drain()
+        with profiling.span("pgo.assemble"):
+            problem = self.pose_graph(keyframes)
         if problem is None:
             return {fid: pose for fid, pose in keyframes.values()}
         g, slot_of = problem
@@ -483,19 +498,21 @@ class FusedLoopVisualOdometry(fused.FusedVisualOdometry):
 
         def t(a):
             return torch.as_tensor(a, device=dev)
-        new_poses_p = self.pgo.solve(g, iters=iters)
-        new_poses = new_poses_p[:T].cpu().numpy()
+        with profiling.span("pgo.solve"):
+            new_poses_p = self.pgo.solve(g, iters=iters)
+            new_poses = new_poses_p[:T].cpu().numpy()
         self.pgo_keyframes = {k: (keyframes[k][0], new_poses[s])
                               for k, s in slot_of.items()}
         if landmarks:
-            lm_ids = list(landmarks)
-            first_tab = self._lm_first_table()
-            first = np.array([slot_of.get(int(first_tab[i]), -1)
-                              for i in lm_ids], np.int64)
-            new_lm = reanchor_landmarks(
-                t(np.stack([landmarks[i] for i in lm_ids])), t(first),
-                g.poses, new_poses_p, g.pose_valid).cpu().numpy()
-            self.pgo_landmarks = dict(zip(lm_ids, new_lm))
+            with profiling.span("pgo.reanchor"):
+                lm_ids = list(landmarks)
+                first_tab = self._lm_first_table()
+                first = np.array([slot_of.get(int(first_tab[i]), -1)
+                                  for i in lm_ids], np.int64)
+                new_lm = reanchor_landmarks(
+                    t(np.stack([landmarks[i] for i in lm_ids])), t(first),
+                    g.poses, new_poses_p, g.pose_valid).cpu().numpy()
+                self.pgo_landmarks = dict(zip(lm_ids, new_lm))
         return {fid: pose for fid, pose in self.pgo_keyframes.values()}
 
     def _lm_first_table(self) -> np.ndarray:
@@ -530,16 +547,12 @@ class ScanLoopVisualOdometry(FusedLoopVisualOdometry, fused.ScanVisualOdometry):
         self._rel_new = torch.zeros((3, 4), device=self.device)
         self._gates = self._hook().keywords
 
-    def _host_bool(self, x) -> bool:
-        self.hook_stats["host_reads"] += 1
-        return bool(x)
-
     def _keyframe(self, run_ba: bool) -> None:
-        r = self.runner
+        r, read = self.runner, profiling.host_read
         r.run(("keyframe+scan", run_ba), lambda: self._kf_scan_graph(run_ba))
-        if self._host_bool(self._hs.candidate_ok):
+        if read("hook.candidate", self._hs.candidate_ok, bool, self.reads):
             r.run("attempt", self._attempt_graph)
-            if self._host_bool(self._hs.need_corr):
+            if read("hook.correction", self._hs.need_corr, bool, self.reads):
                 r.run("correct", self._correct_graph)
         r.run("insert", self._insert_graph)
 
@@ -558,22 +571,25 @@ class ScanLoopVisualOdometry(FusedLoopVisualOdometry, fused.ScanVisualOdometry):
 
     def _attempt_graph(self) -> list:
         hs = self._hs
-        ls, idx, fuse, T_corr, need = hook_attempt(
-            self.ls, self.fs, hs.desc, hs.desc_ok, hs.best, self._ids[1],
-            **self._gates)
+        with profiling.device_span("hook.attempt"):
+            ls, idx, fuse, T_corr, need = hook_attempt(
+                self.ls, self.fs, hs.desc, hs.desc_ok, hs.best, self._ids[1],
+                **self._gates)
         return [(self.ls, ls), ((hs.match_idx, hs.fuse, hs.T_corr,
                                  hs.need_corr), (idx, fuse, T_corr, need))]
 
     def _correct_graph(self) -> list:
         hs = self._hs
-        fs, ms = hook_correct(self.fs, self.ms, self.ls, hs.best,
-                              hs.match_idx, hs.fuse, hs.T_corr)
+        with profiling.device_span("hook.correct"):
+            fs, ms = hook_correct(self.fs, self.ms, self.ls, hs.best,
+                                  hs.match_idx, hs.fuse, hs.T_corr)
         return [(self.fs, fs), (self.ms, ms)]
 
     def _insert_graph(self) -> list:
         hs, ids = self._hs, self._kf_ids()
-        ls = hook_insert(self.ls, self.fs, self.ms, hs.emb, hs.desc,
-                         hs.desc_ok, ids.kf_id)
+        with profiling.device_span("hook.insert"):
+            ls = hook_insert(self.ls, self.fs, self.ms, hs.emb, hs.desc,
+                             hs.desc_ok, ids.kf_id)
         arc = fused.finish_keyframe(self.arc, self.fs, self.ms, ids,
                                     self._rel_new)
         return [(self.ls, ls), (self.arc, arc)] + self._out_row(

@@ -16,7 +16,11 @@ runner's one memory pool, and replays it; every later call is one
 capture raises: nothing runs eagerly in its place. The kernel wrappers count
 their launches as Python calls, which a replay does not make, so the runner
 takes back the count that the capture added and adds it again on every
-replay. On the CPU the runner calls the function and makes its writes.
+replay; the recorder's host counters (`utils/profiling.py`) are taken back
+and added again in the same way. A graph captured while the recorder is on
+holds its device spans and counters, and is kept under `Traced(key)`, so
+that a replay with the recorder off never runs one. On the CPU the runner
+calls the function and makes its writes.
 
 Inside a captured function nothing may read the device from the host, copy
 host data to the device, size an output by the data, or check a
@@ -28,12 +32,19 @@ from __future__ import annotations
 
 import contextlib
 import time
+from typing import NamedTuple
 
 import torch
 
 from stereovision_slam_torch.ops import lk_lanes, pose_kernel
+from stereovision_slam_torch.utils import profiling
 
 KERNEL_MODULES = (lk_lanes, pose_kernel)   # kernels A and B
+
+
+class Traced(NamedTuple):
+    """The key of a graph captured with the recorder on."""
+    key: object
 
 
 def leaves(x) -> list:
@@ -99,21 +110,37 @@ class GraphRunner:
 
     `replays` counts graph replays, `captures` the graphs captured,
     `capture_s` the host time of their warm-ups and captures, and
-    `warm_launches` the kernel launches of the warm-ups, by module name."""
+    `warm_launches` the kernel launches of the warm-ups, by module name.
+    Each replay is a `graph.replay` span of the recorder (the key as its
+    attribute), each warm-up and capture a `graph.capture` span, and the
+    capture within it a `graph.record` span (kernel wrappers called there
+    launch nothing)."""
 
     def __init__(self, device, modules=KERNEL_MODULES):
         self.device = torch.device(device)
         self.modules = tuple(modules)
         self.graphs: dict = {}
         self.per_replay: dict = {}
+        self.device_spans: dict = {}
         self.replays = 0
         self.captures = 0
         self.capture_s = 0.0
         self.warm_launches = {m.__name__: 0 for m in self.modules}
         self._pool = None
 
-    def _counts(self) -> list[int]:
-        return [m.launch_count for m in self.modules]
+    def _counts(self) -> dict:
+        """The host counters a capture may move: the kernel modules' launch
+        counts (by module) and the recorder's counters (by name)."""
+        return {**{m: m.launch_count for m in self.modules},
+                **profiling.counts()}
+
+    @staticmethod
+    def _add(counts: dict) -> None:
+        for k, n in counts.items():
+            if isinstance(k, str):
+                profiling.count(k, n)
+            else:
+                k.launch_count += n
 
     def run(self, key, fn, warm=None) -> None:
         """Run `fn` (on the card: its graph for `key`, captured at the first
@@ -121,13 +148,23 @@ class GraphRunner:
         if self.device.type != "cuda":
             write(fn())
             return
+        traced = profiling.enabled()
+        if traced:
+            key = Traced(key)
         graph = self.graphs.get(key)
         if graph is None:
-            graph = self._capture(key, fn, warm or fn)
-        graph.replay()
+            with profiling.span("graph.capture", key):
+                graph = self._capture(key, fn, warm or fn)
+        if traced:
+            pairs = self.device_spans.get(key)
+            profiling.before_replay(pairs)
+            with profiling.span("graph.replay", key) as sp:
+                graph.replay()
+            profiling.replayed(pairs, sp.index)
+        else:
+            graph.replay()
         self.replays += 1
-        for m, n in zip(self.modules, self.per_replay[key]):
-            m.launch_count += n
+        self._add(self.per_replay[key])
 
     def _capture(self, key, fn, warm):
         t0 = time.perf_counter()
@@ -135,12 +172,13 @@ class GraphRunner:
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
+        profiling.prepare(dev)
         c0 = self._counts()
         with torch.cuda.stream(side), _linalg_on_cusolver():
             warm()
         c1 = self._counts()
-        for m, a, b in zip(self.modules, c0, c1):
-            self.warm_launches[m.__name__] += b - a
+        for m in self.modules:
+            self.warm_launches[m.__name__] += c1[m] - c0[m]
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -148,7 +186,9 @@ class GraphRunner:
         # allocator's caches before each capture; these captures share one
         # pool and need neither
         try:
-            with torch.cuda.stream(side), _linalg_on_cusolver():
+            with torch.cuda.stream(side), _linalg_on_cusolver(), \
+                    profiling.capturing() as pairs, \
+                    profiling.span("graph.record", key):
                 graph.capture_begin(pool=self._pool)
                 try:
                     write(fn())
@@ -156,10 +196,13 @@ class GraphRunner:
                     graph.capture_end()
         finally:
             c2 = self._counts()
-            for m, n in zip(self.modules, c1):
-                m.launch_count = n          # the capture launched nothing
+            # the capture launched and counted nothing
+            self._add({k: c1.get(k, 0) - n for k, n in c2.items()})
         main.wait_stream(side)
-        self.per_replay[key] = [b - a for a, b in zip(c1, c2)]
+        self.per_replay[key] = {k: n - c1.get(k, 0) for k, n in c2.items()
+                                if n != c1.get(k, 0)}
+        if pairs:
+            self.device_spans[key] = pairs
         self.graphs[key] = graph
         self.captures += 1
         self.capture_s += time.perf_counter() - t0

@@ -899,3 +899,61 @@ def test_ring_reduce_traps_when_a_peer_never_launches(tmp_path):
     assert "RAISED after" in r.stdout, r.stdout + r.stderr[-2000:]
     waited = float(r.stdout.split("RAISED after ")[1].split(" s")[0])
     assert 1.9 < waited < 20, r.stdout
+
+
+# ---------------------------------------------------------------------
+# The recorder (`utils/profiling.py`) inside the loop path's graphs: the
+# runs of chip_smoke.py's phase 23 at the test's lengths.
+
+def _loop_scene(name: str, n: int, dev):
+    from stereovision_slam_torch.models import place_net
+    scene = scenes.scene(name, n, 188, 620, device=dev)
+    return scene, place_net.get_params(device=dev)
+
+
+def test_device_spans_inside_replayed_keyframe_graphs(dev):
+    """60 frames of the long circuit with the recorder on: each keyframe
+    frame's device spans (CUDA events recorded as graph nodes, timed again at
+    every replay) read positive times that sum to no more than the frame's
+    host-to-synchronize window; BA's span is among them."""
+    import chip_smoke
+
+    scene, params = _loop_scene("circuit_long", 60, dev)
+    _, ms, vo, rec = chip_smoke.tracing_run(scene, dev, params, True, 60)
+    per: dict = {}
+    for d in rec["device_spans"]:
+        per.setdefault(d["request"][1], []).append(d)
+    assert len(per) >= 3 and vo.kf_count >= 3
+    for fid, ds in per.items():
+        assert all(d["ms"] > 0 for d in ds), (fid, ds)
+        assert sum(d["ms"] for d in ds) <= ms[fid], fid
+    names = {d["name"] for d in rec["device_spans"]}
+    assert {"kf.frontend", "kf.ba", "kf.archive", "hook.embed",
+            "hook.scan", "hook.insert"} <= names
+    assert rec["device_counts"]["ba.passes"] >= len(per)
+
+
+def test_recorder_off_graphs_launch_what_the_program_did_without_it(dev):
+    """With the recorder off, every loop graph launches per replay the
+    device kernels of the same graph captured with each recorder call
+    stubbed out, and the same kernel A and B launches per replay."""
+    import chip_smoke
+    from tests.torch_tracing import graph_kernels, stubbed_recorder
+
+    scene, params = _loop_scene("circuit_long", 40, dev)
+    _, _, vo, _ = chip_smoke.tracing_run(scene, dev, params, False, 40)
+    with stubbed_recorder():
+        _, _, stub, _ = chip_smoke.tracing_run(scene, dev, params, False, 40)
+    assert vo.runner.per_replay == stub.runner.per_replay
+    a, b = graph_kernels(vo), graph_kernels(stub)
+    assert a == b and len(a) >= 3
+
+
+def test_traced_loop_poses_equal_untraced_over_200_frames(dev):
+    import chip_smoke
+
+    scene, params = _loop_scene("circuit_long", 200, dev)
+    off, _, _, _ = chip_smoke.tracing_run(scene, dev, params, False, 200)
+    on, _, _, rec = chip_smoke.tracing_run(scene, dev, params, True, 200)
+    assert np.array_equal(off, on)
+    assert sum(1 for s in rec["spans"] if s["name"] == "frame") == 200

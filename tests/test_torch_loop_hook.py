@@ -85,14 +85,14 @@ def _hooks(ls, fs, ms, arc, kf_id, cam):
         jnp.int32(100 + kf_id), jnp.int32(kf_id),
         jax.tree.map(jnp.asarray, arc), cam_left=cam,
         mnv2_params=jplace.get_params(), **GATES)
-    stats = {}
+    reads = {}
     b = fused_loop._loop_hook(
         convert.loop_state(ls), convert.frontend_state(fs),
         convert.map_state(ms), tuple(convert.tensor(x) for x in fs.pyr),
         100 + kf_id, kf_id, convert.archive_state(arc),
         cam_left=convert.camera(cam),
-        place_params=place_net.get_params(device="cpu"), stats=stats, **GATES)
-    return tuple(_np(x) for x in a), b, stats
+        place_params=place_net.get_params(device="cpu"), reads=reads, **GATES)
+    return tuple(_np(x) for x in a), b, reads
 
 
 def _hold(ref, port, atol=None):
@@ -146,16 +146,16 @@ def test_loop_hook_matches_reference_on_fabricated_revisit(reference_run):
     fs, ms, arc = _np(ref.fs), _np(ref.ms), _np(ref.arc)
     ls0 = _np(jfl.empty_loop_state(64, cfg.max_features, 16))
     # keyframe 0 joins the empty database: no candidate, one host read
-    (fs1, ms1, ls1), (pfs1, pms1, pls1), stats = _hooks(ls0, fs, ms, arc, 0,
+    (fs1, ms1, ls1), (pfs1, pms1, pls1), reads = _hooks(ls0, fs, ms, arc, 0,
                                                         rig[0])
-    assert stats["host_reads"] == 1 and bool(ls1.db_valid[0])
+    assert reads == {"hook.candidate": 1} and bool(ls1.db_valid[0])
     _hold(ls1, pls1, atol={"db_embed": 1e-3})
     _hold(ms1, pms1)
     # the revisit as keyframe 30: candidate, match, PnP, edge, fusion, merge
     fs2, ms2, (rename, drop, dup) = _revisit_state(fs1, ms1)
-    (fs3, ms3, ls3), (pfs3, pms3, pls3), stats = _hooks(ls1, fs2, ms2, arc,
+    (fs3, ms3, ls3), (pfs3, pms3, pls3), reads = _hooks(ls1, fs2, ms2, arc,
                                                         30, rig[0])
-    assert stats["host_reads"] == 2
+    assert reads == {"hook.candidate": 1, "hook.correction": 1}
     assert int(ls3.n_loops) == int(pls3.n_loops) == 1
     assert int(pls3.loop_i[0]) == 30 and int(pls3.loop_j[0]) == 0
     assert int(pls3.last_closed) == 30

@@ -39,6 +39,7 @@ from stereovision_slam_torch.slam import frontend as fe
 from stereovision_slam_torch.slam import map_state as mapmod
 from stereovision_slam_torch.slam import pose_graph
 from stereovision_slam_torch.slam.pnp import pnp_ransac
+from stereovision_slam_torch.utils import profiling
 from tests.test_pipeline_frontend import small_config
 from tests.test_torch_loop_hook import (GATES, _hold, _hooks, _np,  # noqa: F401
                                         _revisit_state, reference_run)
@@ -285,9 +286,10 @@ def _run_hook(vo):
                                hs.candidate_ok),
                               (emb, desc, desc_ok, best, cand))]
     r.run("scan", scan)
-    if vo._host_bool(hs.candidate_ok):
+    read = profiling.host_read
+    if read("hook.candidate", hs.candidate_ok, bool, vo.reads):
         r.run("attempt", vo._attempt_graph)
-        if vo._host_bool(hs.need_corr):
+        if read("hook.correction", hs.need_corr, bool, vo.reads):
             r.run("correct", vo._correct_graph)
     r.run("insert", lambda: vo._insert_graph()[:1])
 
@@ -319,7 +321,7 @@ def test_scan_loop_matches_reference_on_fabricated_revisit(reference_run):
 def _one_piece_hook(ls, fs, ms, pyr, frame_id, kf_id: int, arc, *, cam_left,
                     place_params, skip, cooldown, strong, weak, max_weak,
                     min_match, min_pose_diff, max_pose_diff, max_loop_dist,
-                    num_hypotheses, stats):
+                    num_hypotheses, reads):
     """The loop hook before its split into stages (a test-local copy),
     with an int keyframe id and its two host reads in line."""
     left_img = pyr[0]
@@ -342,7 +344,7 @@ def _one_piece_hook(ls, fs, ms, pyr, frame_id, kf_id: int, arc, *, cam_left,
     ls = ls._replace(last_score=torch.clamp(torch.where(
         has_any, best_sim, torch.zeros_like(best_sim)), min=0.0).to(
             ls.last_score.dtype))
-    stats["host_reads"] += 1
+    reads["hook.candidate"] = reads.get("hook.candidate", 0) + 1
     if bool(candidate_ok):
         idx, _, good = matching.match(ls.db_desc[best], ls.db_desc_ok[best],
                                       desc, desc_ok)
@@ -376,7 +378,7 @@ def _one_piece_hook(ls, fs, ms, pyr, frame_id, kf_id: int, arc, *, cam_left,
             loop_info=sd(ls.loop_info, e, info[None]),
             n_loops=ls.n_loops + accept.to(torch.int32),
             last_closed=torch.where(accept, kid, ls.last_closed))
-        stats["host_reads"] += 1
+        reads["hook.correction"] = reads.get("hook.correction", 0) + 1
         if bool(need_corr):
             D = se3.se3_compose(se3.se3_inverse(fs.T_cur), T_corr)
             Dinv = se3.se3_inverse(D)
@@ -435,17 +437,17 @@ def test_hook_stages_equal_one_piece_hook(reference_run):
                 _np(fe.FrontendState(*old[0])), _np(mapmod.MapState(
                     *old[1])))
             tfs, tms = convert.frontend_state(fs2), convert.map_state(ms2)
-        s0, s1, s2 = ({"host_reads": 0} for _ in range(3))
+        s0, s1, s2 = ({} for _ in range(3))
         old = _one_piece_hook(ls, tfs, tms, tfs.pyr, 100 + kf_id, kf_id,
-                              arc, stats=s0, **kw)
-        for key, stats in ((kf_id, s1), (torch.tensor(kf_id), s2)):
+                              arc, reads=s0, **kw)
+        for key, reads in ((kf_id, s1), (torch.tensor(kf_id), s2)):
             new = fused_loop._loop_hook(ls, tfs, tms, tfs.pyr, 100 + kf_id,
-                                        key, arc, stats=stats, **kw)
+                                        key, arc, reads=reads, **kw)
             for a, b in zip(old, new):
                 for x, y in zip(graphs.leaves(a), graphs.leaves(b)):
                     assert torch.equal(x, y)
-            assert stats == s0
-        assert s0["host_reads"] == (2 if kf_id else 1)
+            assert reads == s0
+        assert sum(s0.values()) == (2 if kf_id else 1)
         ls = old[2]
     assert int(ls.n_loops) == 1
 
