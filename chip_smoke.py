@@ -17,6 +17,12 @@ Phases, in order; any failure exits non-zero:
      a stream axis at (B, S) = (4, 3); one `solve_pose_multi_lr` call is
      one launch with no other operator and no device->host read; times
      back to back, alone (warm and with the L2 flushed) and on the host;
+  3b. the BA kernel (the keyframe window's whole BA pass in one launch)
+     against the plain route on the windows of tests/torch_ba_cases.py
+     (the benchmark cell's shapes, other compactions, few keyframes, a
+     duplicated link, singular landmark blocks, every observation an
+     outlier), one launch a pass; its time at the cell's shapes beside the
+     plain route's and the bound;
   4. the slice: the 120-frame 188x620 circuit through `FusedVisualOdometry`
      on "cuda" with the bench settings, the bench's gates, keyframe ATE < 2%
      of the path, and the launch counters against the frame and keyframe
@@ -804,6 +810,46 @@ def check_pose(dev):
                 wide={f"F{WIDE_F}": t_w})
 
 
+def check_ba(dev) -> dict:
+    """Phase 3b: the BA kernel against the plain route on each window of
+    tests/torch_ba_cases.py (one launch a pass, the module's tolerances,
+    every solved landmark and the watched ones by name), then its times at
+    the cell's shapes, the plain route's and the bound
+    (`tests.torch_ba_cases.bound_ms`). Returns the kernel's row:
+    `max_abs_err` the largest landmark gap (m) to the plain route, `cases`
+    each window's accept decisions, ties and largest gaps to the plain
+    route and to the float64 pass (`hold`'s)."""
+    from stereovision_slam_torch.slam import backend
+    from tests import torch_ba_cases as bc
+
+    windows = bc.bases(dev)
+    cases = {}
+    for name in bc.CASES:
+        m, cl, cr, kw, watch = bc.case(windows, name)
+        try:
+            held = bc.hold(m, cl, cr, kw, watch)
+        except AssertionError as e:
+            check(False, f"BA kernel, window {name}: {e}")
+        print(f"BA kernel {name}: {held}")
+        check(bc.held(held), f"BA kernel, window {name}: {held}")
+        cases[name] = {k: held[k] for k in (
+            "accepts", "flips", "tie", "pose", "pose_f64", "pose_plain_f64",
+            "lm", "lm_f64", "lm_plain_f64", "solved")}
+    m, cl, cr, kw, _ = bc.case(windows, "cell")
+    t = kernel_times(lambda: backend.optimize_window(m, cl, cr, **kw), 20)
+    plain = cuda_ms(lambda: backend.optimize_window_plain(m, cl, cr, **kw), 5)
+    b, by = bc.bound_ms(m, kw)
+    print(f"BA kernel at the cell's shapes: {times_line(t)}; plain "
+          f"{plain:.3f} ms, bound {b:.6f} ms ({by})")
+    return dict(name="ba_window", route="cuda",
+                source="stereovision_slam_torch/csrc/ba_window.cu",
+                replaces="none (stereovision_slam_tpu/slam/backend.py "
+                         "optimize_window is plain XLA)",
+                max_abs_err=max(c["lm"] for c in cases.values()), **t,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+                cases=cases)
+
+
 def pose_bound(args, out, kw):
     """Kernel B's bound for one call: inputs read and outputs written once;
     per valid observation and pass (rounds x (iters + 1) + the final one)
@@ -1192,6 +1238,10 @@ def loop_phase(label: str, scene, counters, dev, place_params):
           f"not {tracked}")
     check(vo.hook_reads <= 2 * (inserted - 1),
           f"loop {label}: {vo.hook_reads} hook host reads")
+    check(launches["ba_window"] == inserted - 1,
+          f"loop {label}: the BA kernel launched {launches['ba_window']} "
+          f"times, not {inserted - 1} (a pass a keyframe step after the "
+          f"initialization)")
     # the bench's gates (bench.py:226-269), every failure listed
     gates = {
         f"{len(keyframes)} keyframes, {len(landmarks)} landmarks":
@@ -1747,6 +1797,9 @@ def run_serving(streams, rig, counters, dev, cfg, label: str,
           f"kernel B launched {launches['pose_lm']} times, not {steps}")
     check(launches["lk_iterate"] == 0 and launches["gather_windows"] == 0,
           "the lanes path launched kernel C or the gather")
+    check(launches["ba_window"] == len(passes),
+          f"the BA kernel launched {launches['ba_window']} times over "
+          f"{len(passes)} BA passes")
     return vo, snaps, launches
 
 
@@ -2074,7 +2127,8 @@ def sharded_ba_phase(vo, counters, dev, err_d: float, profile: bool,
     from stereovision_slam_torch.geometry import se3
     from stereovision_slam_torch.parallel.mesh import make_ba_mesh
     from stereovision_slam_torch.parallel.sharded_ba import build_sharded_ba
-    from stereovision_slam_torch.slam.backend import optimize_window
+    from stereovision_slam_torch.slam.backend import (optimize_window,
+                                                      optimize_window_plain)
 
     cfg = bench_config()
     m, cl, cr = vo.ms, vo.cam_left, vo.cam_right
@@ -2126,8 +2180,11 @@ def sharded_ba_phase(vo, counters, dev, err_d: float, profile: bool,
           f"{iters}")
     check(equal, "a kernel D launch of the sharded BA differs from its "
           "plain version")
-    ms1, _ = optimize_window(m, cl, cr, chi2_th=cfg.chi2_th, iters=iters,
-                             outlier_rounds=0, max_active_landmarks=La)
+    # the single-card BA's plain route, the sharded BA's formulation (the
+    # BA kernel sums in another order: phase 3b holds it to this route)
+    ms1, _ = optimize_window_plain(m, cl, cr, chi2_th=cfg.chi2_th,
+                                   iters=iters, outlier_rounds=0,
+                                   max_active_landmarks=La)
     kv, lv = m.kf_valid, m.lm_valid
 
     # landmarks are held within max(tol[1], tol[2] x distance from the
@@ -2350,7 +2407,8 @@ def chunk_hold(label: str, make, counters) -> list:
     ins = [bool(o.kf_inserted) for _, o in oc]
     same_kf = ins == [bool(o.kf_inserted) for _, o in oe]
     warm = warm_counts(c.runner, counters)
-    want = {k: le[k] + warm[k] for k in ("lk_pyramid", "pose_lm")}
+    want = {k: le[k] + warm[k] for k in ("lk_pyramid", "pose_lm",
+                                         "ba_window")}
     pad = int(c.out_buf.n_inliers[n])
     print(f"{label}: {type(c).__name__} against {type(e).__name__}, {n} "
           f"circuit frames, chunks of 8 ({8 - n % 8} "
@@ -2504,11 +2562,14 @@ def chunked_loop_run(name: str, scene, counters, dev, params,
           f"run's by more than 1e-4: {first}")
     want_a = 2 * tracked + inserted + warm["lk_pyramid"]
     want_b = tracked + warm["pose_lm"]
+    want_ba = inserted - 1 + warm["ba_window"]
     gates = {
         f"kernel A launched {launches['lk_pyramid']} times, not {want_a}":
             launches["lk_pyramid"] == want_a,
         f"kernel B launched {launches['pose_lm']} times, not {want_b}":
             launches["pose_lm"] == want_b,
+        f"the BA kernel launched {launches['ba_window']} times, not "
+        f"{want_ba}": launches["ba_window"] == want_ba,
         f"{vo.hook_reads} hook host reads":
             vo.hook_reads <= 2 * (inserted - 1),
         f"{len(keyframes)} keyframes, {len(landmarks)} landmarks":
@@ -3357,7 +3418,7 @@ def per_rank_phase(ba: dict, pgo: dict, counters, dev):
     from stereovision_slam_torch.parallel.mesh import make_ba_mesh
     from stereovision_slam_torch.parallel.sharded_ba import build_sharded_ba
     from stereovision_slam_torch.parallel.sharded_pgo import build_sharded_pgo
-    from stereovision_slam_torch.slam.backend import optimize_window
+    from stereovision_slam_torch.slam.backend import optimize_window_plain
 
     t_phase = time.perf_counter()
     missed = []
@@ -3365,9 +3426,9 @@ def per_rank_phase(ba: dict, pgo: dict, counters, dev):
                                               "L", "kw"))
     mesh = make_ba_mesh(devices=[f"{dev}:0"] * PER_RANK_RANKS, dp=2, mp=2)
     tensor_mesh = make_ba_mesh(PER_RANK_RANKS, dp=2, mp=2, device=dev)
-    ms1, _ = optimize_window(m, cl, cr, chi2_th=kw["chi2_th"],
-                             iters=kw["iters"], outlier_rounds=0,
-                             max_active_landmarks=kw["max_active_landmarks"])
+    ms1, _ = optimize_window_plain(
+        m, cl, cr, chi2_th=kw["chi2_th"], iters=kw["iters"],
+        outlier_rounds=0, max_active_landmarks=kw["max_active_landmarks"])
     launches, ms, records = None, {}, []
     for impl in ("ring", "xla"):
         run = build_sharded_ba(mesh, K, F, L, reduce_impl=impl, **kw)
@@ -3855,7 +3916,7 @@ def main() -> int:
     try:
         from stereovision_slam_torch import scenes
         from stereovision_slam_torch.ops import (
-            _cuda, gather, lk_iterate, lk_lanes, pose_kernel)
+            _cuda, ba_kernel, gather, lk_iterate, lk_lanes, pose_kernel)
         from stereovision_slam_torch.parallel import ring_reduce
     except ImportError as e:
         print(f"chip_smoke: the port is missing: {e}", file=sys.stderr)
@@ -3886,12 +3947,14 @@ def main() -> int:
     # 2-3. kernels against their plain versions
     kernels = [check_lk((lefts, rights), dev), check_pose(dev)]
     kernels[1]["streams_4x3"] = check_pose_streams(dev)
+    ba_row = check_ba(dev)
 
     # 4. the slice on the card, counters read around this run only
     counters = {"lk_pyramid": lk_lanes, "pose_lm": pose_kernel,
                 "lk_iterate": lk_iterate, "gather_windows": gather,
                 "ring_all_reduce": ring_reduce,
-                "ring_all_reduce owner form": OwnedLaunches(ring_reduce)}
+                "ring_all_reduce owner form": OwnedLaunches(ring_reduce),
+                "ba_window": ba_kernel}
     T = len(lefts)
     for mod in counters.values():
         mod.launch_count = 0
@@ -3929,6 +3992,10 @@ def main() -> int:
           f"kernel B launched {launches['pose_lm']} times, not {tracked}")
     check(launches["lk_iterate"] == 0 and launches["gather_windows"] == 0,
           "the slice launched kernel C or the gather")
+    # one BA pass, one launch, a keyframe step after the initialization
+    check(launches["ba_window"] == kf_steps - 1,
+          f"the BA kernel launched {launches['ba_window']} times, not "
+          f"{kf_steps - 1}")
     by_path = {"slice": launches}
 
     if args.profile:
@@ -4083,13 +4150,11 @@ def main() -> int:
                 "cli_fused", "mnv2_loop", "mnv2_cli_classic", "fast_slice",
                 "fast_serving", "serving_mesh", "scenarios")
     main_path = {"lk_pyramid": ab_paths, "pose_lm": ab_paths,
+                 "ba_window": ab_paths,
                  "lk_iterate": ("serving_pallas",),
                  "gather_windows": ("serving_pallas",),
                  "ring_all_reduce": ("sharded_ba", "sharded_ba_2proc",
                                      "per_rank_ba")}
-    for k in kernels:
-        k["launches"] = sum(by_path[p][k["name"]] for p in main_path[k["name"]])
-        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     # the owner form, counted apart on kernel D's paths (on one card they
     # launch the table form)
     owned = kernels[-1]["owned"]
@@ -4097,11 +4162,15 @@ def main() -> int:
                             for p in main_path["ring_all_reduce"])
     owned["launches_by_path"] = {p: by_path[p][owned["name"]]
                                  for p in main_path["ring_all_reduce"]}
+    kernels.append(ba_row)
+    for k in kernels:
+        k["launches"] = sum(by_path[p][k["name"]] for p in main_path[k["name"]])
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "cold_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_cold_ms",
             "streams_4x3", "wide", "cross_process", "per_rank", "owned",
-            "launches_by_path")
+            "cases", "launches_by_path")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(smi)

@@ -68,3 +68,23 @@ def huber_weight(r2: torch.Tensor, delta2) -> torch.Tensor:
     delta2."""
     return torch.where(r2 <= delta2, torch.ones_like(r2),
                        torch.sqrt(delta2 / torch.clamp(r2, min=1e-20)))
+
+
+def inv3x3(A: torch.Tensor) -> torch.Tensor:
+    """Batched adjugate 3x3 inverse; singular blocks give 0."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A21 = f * g - d * i
+    A31 = d * h - e * g
+    det = a * A11 + b * A21 + c * A31
+    ok = torch.abs(det) > 1e-30
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)),
+                          torch.zeros_like(det))
+    adj = torch.stack([
+        torch.stack([A11, c * h - b * i, b * f - c * e], dim=-1),
+        torch.stack([A21, a * i - c * g, c * d - a * f], dim=-1),
+        torch.stack([A31, b * g - a * h, a * e - b * d], dim=-1),
+    ], dim=-2)
+    return adj * inv_det[..., None, None]

@@ -23,7 +23,9 @@ import torch
 
 from stereovision_slam_torch.geometry import jacobians, se3
 from stereovision_slam_torch.geometry.camera import Camera
+from stereovision_slam_torch.ops import ba_kernel
 from stereovision_slam_torch.slam import map_state as mapmod
+from stereovision_slam_torch.utils import profiling
 
 
 class BAObservations(NamedTuple):
@@ -128,26 +130,6 @@ def _assemble(r, J_pose, J_point, w, obs: BAObservations, K: int, L: int,
     return H_pp, b_p, H_ll, b_l, G.reshape(n_ranks, L, K, 6, 3)
 
 
-def _inv3x3(A: torch.Tensor) -> torch.Tensor:
-    """Batched adjugate 3x3 inverse; singular blocks give 0."""
-    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
-    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
-    A11 = e * i - f * h
-    A21 = f * g - d * i
-    A31 = d * h - e * g
-    det = a * A11 + b * A21 + c * A31
-    ok = torch.abs(det) > 1e-30
-    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)),
-                          torch.zeros_like(det))
-    adj = torch.stack([
-        torch.stack([A11, c * h - b * i, b * f - c * e], dim=-1),
-        torch.stack([A21, a * i - c * g, c * d - a * f], dim=-1),
-        torch.stack([A31, b * g - a * h, a * e - b * d], dim=-1),
-    ], dim=-2)
-    return adj * inv_det[..., None, None]
-
-
 def schur_solve(H_pp, b_p, H_ll, b_l, G, lam, kf_active, lm_active):
     """Marginalize the landmarks, solve the reduced camera system and
     back-substitute. Returns (dx_pose (K, 6), dx_point (L, 3))."""
@@ -158,7 +140,8 @@ def schur_solve(H_pp, b_p, H_ll, b_l, G, lam, kf_active, lm_active):
     Hll_d = H_ll + lam * eye3 * torch.clamp(
         torch.diagonal(H_ll, dim1=-2, dim2=-1), min=1e-6)[..., None] * eye3
     Hll_d = torch.where(lm_active[:, None, None], Hll_d, eye3)
-    Hll_inv = torch.where(lm_active[:, None, None], _inv3x3(Hll_d), 0.0)
+    Hll_inv = torch.where(lm_active[:, None, None], jacobians.inv3x3(Hll_d),
+                          0.0)
 
     GH = torch.einsum("lkac,lcd->lkad", G, Hll_inv)
     S = -torch.einsum("lkad,ljbd->kjab", GH, G)
@@ -185,10 +168,51 @@ def optimize_window(m: mapmod.MapState, cam_left: Camera, cam_right: Camera,
                     outlier_rounds: int = 5,
                     max_active_landmarks: int | None = None):
     """One BA pass over the active window: refined poses and landmarks are
-    written back and outlier observations unlinked.
+    written back and outlier observations unlinked. A map on a CUDA device
+    goes to the BA kernel (`ops/ba_kernel.py`, one launch), any other to
+    `optimize_window_plain`. Either route counts the pass in the recorder
+    under `kernel.BA.launches[tag]`, with the device counters
+    `kernel.BA.observations[tag]` (valid observations) and
+    `kernel.BA.landmarks[tag]` (landmarks solved).
 
     Returns (new_map, stats) with stats = (num_obs, num_outliers,
     final_chi2_th, lm_overflow), all tensors."""
+    kw = dict(chi2_th=chi2_th, iters=iters, outlier_rounds=outlier_rounds,
+              max_active_landmarks=max_active_landmarks)
+    if m.kf_pose.device.type == "cuda":
+        m2, stats, solved = ba_kernel.launch(m, cam_left, cam_right, **kw)
+    else:
+        m2, stats = optimize_window_plain(m, cam_left, cam_right, **kw)
+        solved = None
+    if profiling.enabled():
+        K, F = m.obs_lm.shape
+        L = m.lm_valid.shape[0]
+        La = L if max_active_landmarks is None else min(max_active_landmarks,
+                                                         L)
+        if solved is None:
+            solved = (m.lm_valid & (m.lm_obs_count > 0)).sum() - stats[3]
+        profiling.kernel_launch(
+            "BA", f"K{K}.F{F}.La{La}.i{iters}",
+            list(m) + [m2.kf_pose, m2.lm_pos, m2.obs_lm, m2.obs_has_r,
+                       m2.lm_obs_count],
+            observations=stats[0], landmarks=solved)
+    return m2, stats
+
+
+def optimize_window_plain(m: mapmod.MapState, cam_left: Camera,
+                          cam_right: Camera, chi2_th: float = 5.991,
+                          iters: int = 10, outlier_rounds: int = 5,
+                          max_active_landmarks: int | None = None,
+                          follow=None, trace: list | None = None):
+    """`optimize_window` in plain PyTorch, on any device.
+
+    An LM step is accepted where the candidate's robust cost, a float sum
+    over every observation, is below the current one; near the optimum
+    the two are a few ulps apart, and another order of the same sums (the
+    BA kernel's) may decide otherwise, which moves every later step. With
+    `follow` (one bool a step) the pass takes those decisions instead of
+    its own; with `trace` (a list) it appends, a step, its own decision and
+    the cost's relative change (cost - candidate's) / max(|cost|, 1)."""
     K, F = m.obs_lm.shape
     L = m.lm_valid.shape[0]
     dt, dev = m.kf_pose.dtype, m.kf_pose.device
@@ -233,7 +257,7 @@ def optimize_window(m: mapmod.MapState, cam_left: Camera, cam_right: Camera,
 
     kf_pose, lm_pos_c = m.kf_pose, lm_pos0
     lam = torch.full((), 1e-4, dtype=dt, device=dev)
-    for _ in range(iters):
+    for it in range(iters):
         r, Jp, Jl, in_front = _residuals_lr(cam_left, cam_right, kf_pose,
                                             lm_pos_c, obs_c)
         c = torch.sum(r * r, dim=-1)
@@ -246,7 +270,13 @@ def optimize_window(m: mapmod.MapState, cam_left: Camera, cam_right: Camera,
         kf_new = se3.se3_compose(se3.se3_exp(dx_p), kf_pose)
         lm_new = lm_pos_c + dx_l
         cost_inc = torch.where(use, rho(c), 0.0).sum()
-        better = robust_total(kf_new, lm_new) < cost_inc
+        cand = robust_total(kf_new, lm_new)
+        better = cand < cost_inc
+        if trace is not None:
+            trace.append((bool(better), float(
+                (cost_inc - cand) / torch.clamp(cost_inc.abs(), min=1.0))))
+        if follow is not None:
+            better = torch.tensor(bool(follow[it]), device=dev)
         kf_pose = torch.where(better, kf_new, kf_pose)
         lm_pos_c = torch.where(better, lm_new, lm_pos_c)
         lam = torch.where(better, torch.clamp(lam * 0.5, min=1e-9),

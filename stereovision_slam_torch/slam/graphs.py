@@ -36,10 +36,10 @@ from typing import NamedTuple
 
 import torch
 
-from stereovision_slam_torch.ops import lk_lanes, pose_kernel
+from stereovision_slam_torch.ops import ba_kernel, lk_lanes, pose_kernel
 from stereovision_slam_torch.utils import profiling
 
-KERNEL_MODULES = (lk_lanes, pose_kernel)   # kernels A and B
+KERNEL_MODULES = (lk_lanes, pose_kernel, ba_kernel)  # A, B and BA
 
 
 class Traced(NamedTuple):

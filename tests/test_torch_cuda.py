@@ -933,10 +933,23 @@ def test_device_spans_inside_replayed_keyframe_graphs(dev):
     assert rec["device_counts"]["ba.passes"] >= len(per)
 
 
+def test_replayed_keyframe_graphs_count_one_ba_launch_per_pass(dev):
+    """60 frames of the long circuit with the recorder on: the BA kernel's
+    launches, counted by its wrapper and carried by the graph runner into
+    every replay, equal the keyframe branch's BA passes."""
+    import chip_smoke
+
+    scene, params = _loop_scene("circuit_long", 60, dev)
+    _, _, vo, rec = chip_smoke.tracing_run(scene, dev, params, True, 60)
+    launches = sum(v for k, v in rec["counts"].items()
+                   if k.startswith("kernel.BA.launches["))
+    assert launches == rec["device_counts"]["ba.passes"] >= 3
+
+
 def test_recorder_off_graphs_launch_what_the_program_did_without_it(dev):
     """With the recorder off, every loop graph launches per replay the
     device kernels of the same graph captured with each recorder call
-    stubbed out, and the same kernel A and B launches per replay."""
+    stubbed out, and the same kernel A, B and BA launches per replay."""
     import chip_smoke
     from tests.torch_tracing import graph_kernels, stubbed_recorder
 
@@ -957,3 +970,101 @@ def test_traced_loop_poses_equal_untraced_over_200_frames(dev):
     on, _, _, rec = chip_smoke.tracing_run(scene, dev, params, True, 200)
     assert np.array_equal(off, on)
     assert sum(1 for s in rec["spans"] if s["name"] == "frame") == 200
+
+
+# ---------------------------------------------------------------------
+# The BA kernel (`ops/ba_kernel.py`, `csrc/ba_window.cu`) against the plain
+# route (`backend.optimize_window_plain`) on the card, on the windows of
+# tests/torch_ba_cases.py, whose tolerances these are (`hold`, `held`):
+# statistics, unlinked observations and counts equal, the landmarks the
+# pass does not solve unchanged; each pose within 1e-4 and each solved
+# landmark within 1e-3 m of the plain route, or within twice the plain
+# route's own gap to its float64 pass of that pass (the sums run in
+# another order, amplified by the solves; the reasons in that module).
+
+@pytest.fixture(scope="module")
+def ba_windows(dev):
+    from tests import torch_ba_cases
+    return torch_ba_cases.bases(dev)
+
+
+@pytest.mark.parametrize("name", ["cell", "perturbed", "coupled", "overflow",
+                                  "no_compaction", "la2048", "two_keyframes",
+                                  "one_keyframe", "duplicate_link",
+                                  "singular_hll", "all_outliers"])
+def test_ba_kernel_matches_plain(ba_windows, name):
+    """One pass, one launch, held to the plain route: the cell's shapes (K
+    16, F 256, L 4096 compacted to 1024, 6 steps) on the circuit's window
+    (as its last BA pass found it, and perturbed) and on one whose
+    keyframes share landmarks, a compaction that cuts more, none, La
+    2048, windows of two and one keyframes, a landmark linked twice from
+    one keyframe, singular H_ll blocks, every observation an outlier."""
+    from tests import torch_ba_cases as bc
+    m, cl, cr, kw, watch = bc.case(ba_windows, name)
+    held = bc.hold(m, cl, cr, kw, watch)
+    assert bc.held(held), held
+    assert held["solved"] > 0
+    if name == "duplicate_link":
+        assert set(held["watched"]) == {"duplicate"}
+    if name == "singular_hll":
+        assert set(held["watched"]) == {"no_observation", "rank_2"}
+    n_obs, n_out, th, overflow = held["stats"]
+    assert n_obs > 400
+    if name in ("coupled", "overflow"):
+        assert overflow > 0
+    if name == "all_outliers":
+        assert n_out == n_obs and th == float(np.float32(5.991)) * 2 ** 5
+    elif name != "one_keyframe":
+        assert n_out < n_obs / 2
+
+
+def test_ba_kernel_bit_equal_twice_and_in_a_graph(ba_windows):
+    """Two launches on one input give the same bits, and so does a CUDA
+    graph's replay of the launch against the eager call."""
+    from stereovision_slam_torch.slam import backend
+    from tests import torch_ba_cases as bc
+    m, cl, cr, kw, _ = bc.case(ba_windows, "coupled")
+
+    def leaves(out):
+        m2, stats = out
+        return [m2.kf_pose, m2.lm_pos, m2.obs_lm, m2.obs_has_r,
+                m2.lm_obs_count, *stats]
+
+    a = leaves(backend.optimize_window(m, cl, cr, **kw))
+    b = leaves(backend.optimize_window(m, cl, cr, **kw))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        backend.optimize_window(m, cl, cr, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = backend.optimize_window(m, cl, cr, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    c = leaves(out)
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_ba_kernel_refuses_what_it_does_not_take(dev):
+    """The wrapper raises, and falls back to nothing, on a window of more
+    keyframe slots than the kernel's keyframe masks hold (MAX_K) and on
+    more outlier rounds than it counts (MAX_ROUNDS)."""
+    from stereovision_slam_torch.ops import ba_kernel
+    from stereovision_slam_torch.slam import backend
+    from stereovision_slam_torch.slam import map_state as mapmod
+
+    cl, cr = scenes.make_stereo_rig(device=dev)
+    wide = mapmod.empty_map(ba_kernel.MAX_K + 1, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="keyframe slots"):
+        backend.optimize_window(wide, cl, cr, iters=2)
+    m = mapmod.empty_map(4, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="outlier rounds"):
+        backend.optimize_window(m, cl, cr, iters=2,
+                                outlier_rounds=ba_kernel.MAX_ROUNDS + 1)
+    before = ba_kernel.launch_count
+    _, stats = backend.optimize_window(m, cl, cr, iters=2)
+    assert ba_kernel.launch_count == before + 1
+    assert [float(x) for x in stats] == [0.0, 0.0,
+                                         float(np.float32(5.991)) * 32, 0.0]

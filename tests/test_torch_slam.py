@@ -193,3 +193,94 @@ def test_optimize_window(mid, max_active):
     _eq_state(jm, tm, 1e-3, skip=("kf_pose",))
     np.testing.assert_allclose(tm.kf_pose.numpy(), np.asarray(jm.kf_pose),
                                atol=1e-4)
+
+
+def _duplicate_link(ms):
+    """The map with one landmark linked twice from one keyframe (as
+    LocalFusion's relinking may leave it): a second valid feature of the
+    keyframe that sees the most linked features takes the first one's
+    landmark."""
+    ms = tmap.MapState(*(np.array(v).copy() for v in ms))
+    linked = ms.obs_valid & (ms.obs_lm >= 0)
+    k = int(np.argmax(linked.sum(axis=1)))
+    f0, f1 = np.nonzero(linked[k])[0][:2]
+    ms.obs_lm[k, f1] = ms.obs_lm[k, f0]
+    return ms, (k, int(ms.obs_lm[k, f0]))
+
+
+@pytest.mark.parametrize("duplicate", [False, True])
+def test_landmark_major_step_matches_assemble(mid, duplicate):
+    """The BA kernel's formulation in plain PyTorch (`ops/ba_kernel.py`
+    `landmark_major_step`: observations grouped by landmark, Schur terms
+    only over observed keyframe pairs, the reduced system over the free
+    keyframes) against `_assemble` + `schur_solve` on the same residuals of
+    a perturbed window, on the `mid` map and on it with a duplicated
+    (landmark, keyframe) link. In float64, so that the comparison sees the
+    algebra: both add the same terms in another order (in float32 this
+    window's Schur complement cancels to a few digits, and either solve
+    is off the float64 one by ~30% of its step). Tolerance: float64 sums
+    in another order, through the solves."""
+    from stereovision_slam_torch.ops import ba_kernel
+    _, ms, _, _, rig = mid
+    if duplicate:
+        ms, (k, lm) = _duplicate_link(ms)
+    tm = convert.map_state(ms)
+    tl, tr = (convert.camera(c) for c in rig)
+    K, L = tm.obs_lm.shape[0], tm.lm_valid.shape[0]
+    obs = tbe.flatten_observations(tm)
+    gen = torch.Generator().manual_seed(7)
+    lm_pos = tm.lm_pos + 0.05 * torch.randn(tm.lm_pos.shape, generator=gen)
+    r, Jp, Jl, front = (x.double() if x.is_floating_point() else x
+                        for x in tbe._residuals_lr(tl, tr, tm.kf_pose, lm_pos,
+                                                   obs))
+    c = torch.sum(r * r, dim=-1)
+    w = torch.where(obs.valid & front,
+                    tbe.jacobians.huber_weight(c, 5.991 ** 2), 0.0)
+    oldest = tm.kf_id[tm.kf_valid].min()
+    kf_free = tm.kf_valid & (tm.kf_id != oldest)
+    lm_active = tm.lm_valid & (tm.lm_obs_count > 0)
+    lam = torch.tensor(1e-4, dtype=torch.float64)
+    if duplicate:
+        twice = (obs.kf == k) & (obs.lm == lm) & obs.valid
+        assert int(twice[:K * tm.obs_lm.shape[1]].sum()) == 2
+    blocks = (b[0] for b in tbe._assemble(r, Jp, Jl, w, obs, K, L))
+    dx_p, dx_l = tbe.schur_solve(*blocks, lam, kf_free, lm_active)
+    mx_p, mx_l = ba_kernel.landmark_major_step(r, Jp, Jl, w, obs, K, L, lam,
+                                               kf_free, lm_active)
+    assert bool(kf_free.any()) and float(dx_p.abs().max()) > 1e-5
+    torch.testing.assert_close(mx_p, dx_p, rtol=1e-6, atol=1e-12)
+    torch.testing.assert_close(mx_l, dx_l, rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_plain_ba_follows_accept_decisions(mid, flip):
+    """`optimize_window_plain` with `trace` records each LM step's own
+    accept decision and relative cost change, on the `mid` window with its
+    landmarks perturbed; following its own decisions gives its own pass
+    bit for bit, and following them with the first accepted step rejected
+    records that flip and gives another pass."""
+    _, ms, _, _, rig = mid
+    tm = convert.map_state(ms)
+    gen = torch.Generator().manual_seed(7)
+    tm = tm._replace(lm_pos=tm.lm_pos + 0.05 * torch.randn(
+        tm.lm_pos.shape, generator=gen))
+    tl, tr = (convert.camera(c) for c in rig)
+    kw = dict(chi2_th=5.991, iters=6, max_active_landmarks=256)
+    own = []
+    m1, _ = tbe.optimize_window_plain(tm, tl, tr, **kw, trace=own)
+    assert len(own) == 6 and own[0] == (True, own[0][1]) and own[0][1] > 0
+    assert all((g > 0) == d for d, g in own)
+    acc = [d for d, _ in own]
+    if flip:
+        acc[0] = False
+    seen = []
+    m2, _ = tbe.optimize_window_plain(tm, tl, tr, **kw, follow=acc,
+                                      trace=seen)
+    differ = [i for i, ((d, _), a) in enumerate(zip(seen, acc)) if d != a]
+    if flip:
+        assert differ[:1] == [0]
+        assert not torch.equal(m1.lm_pos, m2.lm_pos)
+    else:
+        assert differ == [] and seen == own
+        for a, b in zip(m1, m2):
+            assert torch.equal(a, b)

@@ -313,6 +313,24 @@ def test_ba_overflow_counter_equals_optimize_window(loop_runs):
     assert counted["ba.lm_overflow"] == float(stats[3]) > 0
 
 
+def test_keyframe_frames_count_one_ba_launch_per_pass(loop_runs):
+    """`backend.optimize_window` counts each pass in the recorder, on the
+    CPU's plain route as on the kernel: one `kernel.BA.launches[tag]` per
+    `ba.passes`, one pass per keyframe frame after the first, with its
+    observations and landmarks counted."""
+    _, (b, _, rec) = loop_runs
+    launches = {k: v for k, v in rec["counts"].items()
+                if k.startswith("kernel.BA.launches[")}
+    dc = rec["device_counts"]
+    kf_frames = [f for f, o in b.outputs if bool(o.kf_inserted)][1:]
+    assert sum(launches.values()) == dc["ba.passes"] == len(kf_frames) > 0
+    for key in launches:
+        tag = key[len("kernel.BA.launches["):-1]
+        assert dc[f"kernel.BA.observations[{tag}]"] > 0
+        assert dc[f"kernel.BA.landmarks[{tag}]"] > 0
+        assert rec["counts"][f"kernel.BA.bytes[{tag}]"] > 0
+
+
 # -- the benchmark's readers of the span stretch -------------------------- #
 
 def _span(name, t0_ms, t1_ms, parent, request, attr=None, kind="host"):

@@ -212,14 +212,14 @@ def sharded_ba(cs, cards, ba, counters) -> tuple[dict, list]:
     from stereovision_slam_torch.parallel import ring_reduce as rr
     from stereovision_slam_torch.parallel.mesh import make_ba_mesh
     from stereovision_slam_torch.parallel.sharded_ba import build_sharded_ba
-    from stereovision_slam_torch.slam.backend import optimize_window
+    from stereovision_slam_torch.slam.backend import optimize_window_plain
 
     missed, refs = [], {}
     m, cl, cr, K, F, L, kw = (ba[k] for k in ("m", "cl", "cr", "K", "F",
                                               "L", "kw"))
-    ms1, _ = optimize_window(m, cl, cr, chi2_th=kw["chi2_th"],
-                             iters=kw["iters"], outlier_rounds=0,
-                             max_active_landmarks=kw["max_active_landmarks"])
+    ms1, _ = optimize_window_plain(
+        m, cl, cr, chi2_th=kw["chi2_th"], iters=kw["iters"],
+        outlier_rounds=0, max_active_landmarks=kw["max_active_landmarks"])
     for dp, mp in ((2, 2), (4, 1)):
         mesh = make_ba_mesh(devices=cards, dp=dp, mp=mp)
         one_card = make_ba_mesh(len(cards), dp=dp, mp=mp, device=cards[0])
